@@ -3,20 +3,30 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Builds the port's CUDA kernels from `splatter_a_video_tpu_torch/csrc/`,
-holds each against its plain PyTorch version at the flagship shapes
-(854x480, 131,000 Gaussians of which 100,000 alive, degree-3 SH, the
-mask / pos_poly_feat / dino render attributes: C = 20 blended channels),
-renders a 5-frame video through `inference.render_video` with the launch
-counters reset just before, checks the frames, and times the kernels.
-Each phase prints one line; any failure ends the run with a non-zero exit
-and no result line. The line before the last is the kernel table as JSON,
-the last line `{"ok": true, "device": {...}}`. Needs one CUDA device.
+Builds the port's four CUDA kernels from `splatter_a_video_tpu_torch/csrc/`
+and holds each against its plain PyTorch version at the flagship shapes
+(854x480, 131,000 Gaussians of which 100,000 alive, degree-3 SH):
+
+  render: K1 blend_forward and K2 expand_intersections with the mask /
+     pos_poly_feat / dino render attributes (C = 20 blended channels), then
+     a 5-frame video through `inference.render_video`;
+  train: K3 blend_backward and K4 reduce_gaussians at the training blend
+     (rgb, depth, track_gs: C = 7, track_gs masked from opacity), the
+     gradients of the 64x48 training render on the card against the CPU,
+     then ten steps of `trainer.make_train_step` with a density step and an
+     opacity reset.
+
+The launch counters are set to 0 just before each of the two main paths
+(the video render, the ten train steps) and read just after. Each phase
+prints one line; any failure ends the run with a non-zero exit and no
+result line. The line before the last is the kernel table as JSON, the
+last line `{"ok": true, "device": {...}}`. Needs one CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -33,6 +43,11 @@ TIMES = (0, 1.5, 7, 23, 47)
 ATOL = 2e-5             # image and final_T, as the port's CPU tests hold the blend
 REPS = 20
 DEVICE = "cuda"
+TRAIN_T1, TRAIN_T2, TRAIN_STEPS, TRACKS = 7, 23, 10, 4096
+TRAIN_MASK = (1.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0)   # rgb 3, depth 1 reach opacity; track_gs 3 not
+BWD_RTOL = 1e-6         # K3 / K4 against plain: max abs diff / largest plain entry
+GRAD_ATOL, GRAD_RTOL = 3e-4, 2e-3   # gradients, the bars of tests/test_rasterize.py
+PLAIN_REPS = 3          # the plain versions read counts back, so each run waits for the card
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12    # H100 SXM data sheet, CUDA cores
 
@@ -106,6 +121,71 @@ def small_scene_arrays(seed: int, n: int = 120):
     return params, {"alive": np.ones(n, bool)}, cfg
 
 
+def train_batch_arrays(seed: int):
+    """A seeded smooth target frame, depth in [0.5, 2] and TRACKS tracks
+    whose TAPIR logits read as visible and confident."""
+    rng = np.random.RandomState(seed + 2)
+    xx = np.linspace(0.0, 1.0, W, dtype=np.float32)[None, :]
+    yy = np.linspace(0.0, 1.0, H, dtype=np.float32)[:, None]
+    rgb = np.stack([0.5 + 0.4 * np.sin(2 * np.pi * (xx + 0.3 * yy) + ph) for ph in (0.0, 2.0, 4.0)], -1)
+    depth = 0.5 + 1.5 * (0.5 + 0.5 * np.cos(np.pi * xx) * np.cos(0.5 * np.pi * yy))
+    qp = np.stack([rng.uniform(0, W - 1, TRACKS), rng.uniform(0, H - 1, TRACKS)], 1)
+    tracks = np.concatenate([qp + rng.randn(TRACKS, 2) * 2.0, rng.uniform(-6.0, -2.0, (TRACKS, 2))], 1)
+    return dict(rgb1=rgb.astype(np.float32), depth1=depth.astype(np.float32),
+                query_px=qp.astype(np.float32), target_tracks=tracks.astype(np.float32),
+                track_valid=np.ones(TRACKS, bool))
+
+
+def small_train_scene(seed: int, n: int = 120):
+    """A 64x48-sized poly_fourier scene from `create_scene` on the CPU, with
+    random shapes, opacities below 0.9 and motion, for the gradient check."""
+    import torch
+
+    from splatter_a_video_tpu_torch.models import gaussians
+
+    rng = np.random.RandomState(seed + 3)
+    pos = np.concatenate([rng.uniform(-0.9, 0.9, (n, 2)), rng.uniform(0.5, 2.0, (n, 1))], 1)
+    cfg = gaussians.SceneConfig(capacity=n + 16, num_frames=8, traj="poly_fourier")
+    scene = gaussians.create_scene(cfg, pos.astype(np.float32), rng.uniform(0, 1, (n, 3)),
+                                   init_opacity=0.3, device="cpu")
+    p = dict(scene.params)
+    rand = lambda *shape, s=1.0: torch.from_numpy((rng.randn(*shape) * s).astype(np.float32))
+    p["scaling"] = p["scaling"].clone()
+    p["scaling"][:n] = torch.from_numpy(rng.uniform(-3.5, -2.0, (n, 3)).astype(np.float32))
+    p["rotation"] = torch.cat([rand(n, 4), p["rotation"][n:]])
+    p["opacity"] = torch.cat([rand(n, 1, s=0.8), p["opacity"][n:]])
+    p["features_rest"] = rand(*p["features_rest"].shape, s=0.1)
+    p["pos_poly_feat"] = rand(*p["pos_poly_feat"].shape, s=0.01)
+    p["rot_fourier_feat"] = rand(*p["rot_fourier_feat"].shape, s=0.05)
+    return gaussians.GaussianScene(params=p, aux=scene.aux, cfg=cfg)
+
+
+def render_grads(scene, dev, seed: int):
+    """Gradients of a fixed random linear loss on the 64x48 training render
+    (rgb, depth, track_gs) with respect to every parameter and both sinks."""
+    import torch
+
+    from splatter_a_video_tpu_torch.models import camera
+    from splatter_a_video_tpu_torch.models.gaussians import GaussianScene
+    from splatter_a_video_tpu_torch.train import losses, optim, trainer
+
+    tcfg = trainer.TrainerConfig(width=64, height=48, num_frames=8, max_intersections=1 << 14)
+    extr = torch.as_tensor(camera.canonical_camera(64, 48).extrinsic, dtype=torch.float32, device=dev)
+    params = {k: v.detach().to(dev).requires_grad_(True) for k, v in scene.params.items()}
+    sc = GaussianScene(params=params, aux={k: v.to(dev) for k, v in scene.aux.items()}, cfg=scene.cfg)
+    n = scene.alive.shape[0]
+    uv_sink = torch.zeros((n, 2), device=dev, requires_grad=True)
+    abs_sink = torch.zeros((n, 2), device=dev, requires_grad=True)
+    out = trainer._render_with_sinks(trainer.scene_render_inputs(sc, 2), extr, tcfg.raster_cfg(),
+                                     {"track_gs": sc.get_position(5)}, True, uv_sink, abs_sink)
+    rng = np.random.RandomState(seed + 4)
+    loss = sum((v * torch.from_numpy(rng.randn(*v.shape).astype(np.float32)).to(dev)).sum()
+               for v in out.features.values())
+    names = list(params) + ["uv_sink", "abs_sink"]
+    grads = torch.autograd.grad(loss, list(params.values()) + [uv_sink, abs_sink], allow_unused=True)
+    return {k: (torch.zeros(1) if g is None else g.detach().cpu()) for k, g in zip(names, grads)}
+
+
 def sleep_cycles_per_ms() -> float:
     """Clock cycles per ms of `torch.cuda._sleep`, measured with CUDA events."""
     import torch
@@ -162,7 +242,7 @@ def wall_ms(fn, reps: int = REPS) -> float:
 
 
 def device_profile(fn, reps: int):
-    """(device busy ms per call, [(kernel, ms per call)] top 6) from
+    """(device busy ms per call, [(kernel, ms per call)] top 8) from
     torch.profiler, or (None, []) when it records no device kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -179,7 +259,7 @@ def device_profile(fn, reps: int):
             per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
     if not per_name:
         return None, []
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
     return sum(per_name.values()), top
 
 
@@ -238,9 +318,9 @@ def main() -> int:
         )
 
     def blend_inputs(pr):
-        feats = torch.cat([v for v, _ in pr.feature_groups.values()], dim=1).contiguous()
+        feats = torch.cat([v for v, _, _ in pr.feature_groups.values()], dim=1).contiguous()
         bg = torch.tensor(
-            [b for v, b in pr.feature_groups.values() for _ in range(v.shape[1])],
+            [b for v, b, _ in pr.feature_groups.values() for _ in range(v.shape[1])],
             dtype=torch.float32, device=dev,
         )
         return pr.uv.contiguous(), pr.conic.contiguous(), pr.opacity.contiguous(), feats, bg
@@ -313,7 +393,9 @@ def main() -> int:
             rg.LAUNCHES[k] = 0
         video = inference.render_video(scene, cam, rcfg, TIMES, extra_names=EXTRA, device=DEVICE)
         launches = dict(rg.LAUNCHES)
-        require(launches == {k: len(TIMES) for k in launches}, f"launch counts {launches}")
+        forward_only = {k: (len(TIMES) if k in ("blend_forward", "expand_intersections") else 0)
+                        for k in launches}   # rendering takes no gradient
+        require(launches == forward_only, f"launch counts {launches}")
         shapes = {"rgb": (5, H, W, 3), "depth": (5, H, W), "mask_attribute": (5, H, W, 1),
                   "pos_poly_feat": (5, H, W, 12), "dino_attribute": (5, H, W, 3)}
         for k, shape in shapes.items():
@@ -341,7 +423,7 @@ def main() -> int:
         sp = rasterize.project_gaussians(
             *(pr_s[0][k] for k in ("position", "scaling", "rotation", "opacity", "shs")),
             torch.as_tensor(scam.extrinsic, device=dev), scfg, extra_features=pr_s[1])
-        sfeat = torch.cat([v for v, _ in sp.feature_groups.values()], dim=1)
+        sfeat = torch.cat([v for v, _, _ in sp.feature_groups.values()], dim=1)
         oracle = rasterize_ref.splat_reference(
             sp.uv, sp.conic, sp.opacity, sfeat, sp.depth, sp.radius, sp.rect_min, sp.rect_max,
             64, 48, torch.tensor([1.0, 1.0, 1.0, 1.0, 0.0], device=dev))
@@ -387,6 +469,171 @@ def main() -> int:
                  f"bound {k2_bound:.4f} ms (bytes: {k2_bytes:.3g} B) {card}")
     log("times", f"torch.sort of {MAX_INTERSECTIONS} int64 keys (stable) {sort_ms:.4f} ms {card}")
 
+    # ---- 8. training blend: K3 and K4 against their plain versions ---------
+    from splatter_a_video_tpu_torch.train import losses, optim, trainer
+
+    tcfg = trainer.TrainerConfig(width=W, height=H, num_frames=FRAMES, max_intersections=MAX_INTERSECTIONS)
+    extr = torch.as_tensor(cam.extrinsic, dtype=torch.float32, device=dev)
+    mask_t = torch.tensor(TRAIN_MASK, device=dev)
+
+    def train_blend_inputs(tile, bias=None):
+        """Binning, K1 outputs and K3 arguments of the training render of
+        frame TRAIN_T1 at `tile`, with a seeded dL/dimage."""
+        rc = dataclasses.replace(tcfg, block_x=tile[0], block_y=tile[1]).raster_cfg()
+        inp = trainer.scene_render_inputs(scene, TRAIN_T1)
+        tp = trainer.project_for_training(inp, extr, rc, {"track_gs": scene.get_position(TRAIN_T2)},
+                                          True, 0.0, tcfg.depth_bg)
+        tb = binning.bin_intersections(tp.depth, tp.tiles, tp.rect_min, tp.rect_max, W, H,
+                                       MAX_INTERSECTIONS, rc.max_tiles_per_gaussian, rc.block)
+        tu, tc, to, tf, tbg = blend_inputs(tp)
+        require(tf.shape[1] == len(TRAIN_MASK), f"training blend carries {tf.shape[1]} channels")
+        fwd = rg.blend_forward(tb.gid, tb.edges, tu, tc, to, tf, tbg, W, H, tile, 0, bias)
+        g = torch.randn((H, W, tf.shape[1]), generator=torch.Generator(device=dev).manual_seed(args.seed),
+                        device=dev)
+        return tb, fwd, (tb.gid, tb.edges, tu, tc, to, tf, tbg, mask_t, fwd[0], fwd[1], g, W, H, tile, bias)
+
+    def rel_err(a, ref):
+        return (a - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+
+    def k3_check(tag, tile, bias=None):
+        tb, fwd, k3a = train_blend_inputs(tile, bias)
+        n = int(tb.edges[-1])
+        dg, nc = rg.blend_backward(*k3a, return_ncontrib=True)
+        ref, ref_nc = rg.blend_backward_plain(*k3a, return_ncontrib=True)
+        torch.cuda.synchronize()
+        err, abs_err = rel_err(dg[:n], ref[:n]), (dg[:n] - ref[:n]).abs().max().item()
+        bad_k1, bad_plain = int((nc != fwd[2]).sum()), int((ref_nc != fwd[2]).sum())
+        log("K3", f"{tag}: {n} slots x {dg.shape[1]} rows, max abs diff / max |plain| {err:.3g} "
+                  f"(tol {BWD_RTOL}), max abs diff {abs_err:.3g}; "
+                  f"replay ncontrib vs K1 mismatches {bad_k1}, plain vs K1 {bad_plain}")
+        require(torch.isfinite(dg[:n]).all().item(), f"K3 {tag} not finite")
+        require(err <= BWD_RTOL and bad_k1 == 0 and bad_plain == 0, f"K3 {tag} differs")
+        return tb, fwd, k3a, dg, abs_err
+
+    with torch.no_grad():
+        tb, tfwd, k3_args, dgrad, k3_err = k3_check(f"16x16 C={len(TRAIN_MASK)} masked", (16, 16))
+        t_nint = int(tb.num_intersections)
+        require(t_nint <= MAX_INTERSECTIONS, f"training frame saturated: {t_nint} > {MAX_INTERSECTIONS}")
+        k3_check("16x16 opacity_bias", (16, 16), bias)
+        k3_check("32x16", (32, 16))
+
+        k4_args = (dgrad, tb.order, tb.offs, tb.tiles)
+        red = rg.reduce_gaussians(*k4_args)
+        red_p = rg.reduce_gaussians_plain(*k4_args)
+        torch.cuda.synchronize()
+        k4_err = rel_err(red, red_p)
+        require(torch.isfinite(red).all().item() and k4_err <= BWD_RTOL, f"K4 differs from plain: {k4_err}")
+        runs = [rg.reduce_gaussians(rg.blend_backward(*k3_args), tb.order, tb.offs, tb.tiles)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        require(torch.equal(runs[0], runs[1]) and torch.equal(runs[0], red), "K3 + K4 not deterministic")
+        log("K4", f"reduce_gaussians [{red.shape[0]}, {red.shape[1]}]: max abs diff / max |plain| "
+                  f"{k4_err:.3g} (tol {BWD_RTOL}); K3 + K4 run twice more: bit-identical")
+
+    # ---- 9. gradients on the card against the CPU ----------------------------
+    small_t = small_train_scene(args.seed)
+    g_gpu, g_cpu = render_grads(small_t, dev, args.seed), render_grads(small_t, "cpu", args.seed)
+    worst = max(((g_gpu[k] - g_cpu[k]).abs() / (GRAD_ATOL + GRAD_RTOL * g_cpu[k].abs())).max().item()
+                for k in g_cpu)
+    require(all(torch.isfinite(v).all().item() for v in g_gpu.values()), "64x48 gradients not finite")
+    require(worst <= 1.0, f"64x48 gradients: GPU vs CPU at {worst:.3g} of the bar")
+    log("grad", f"64x48 training render, {len(g_cpu)} gradients (every parameter, uv and abs sinks): "
+                f"GPU vs CPU worst |diff| / (atol {GRAD_ATOL} + rtol {GRAD_RTOL} |cpu|) = {worst:.3g}")
+
+    # ---- 10. main path: ten train steps, a density step, an opacity reset ---
+    train_step, density_step, reset_step = trainer.make_train_step(tcfg, cam.extrinsic, device=DEVICE)
+    state = trainer.init_train_state(tcfg, scene, seed=args.seed, device=DEVICE)
+    batch = trainer.Batch(t1=TRAIN_T1, t2=TRAIN_T2, **{
+        k: torch.from_numpy(v).to(dev) for k, v in train_batch_arrays(args.seed).items()})
+    state0 = state
+    for k in rg.LAUNCHES:
+        rg.LAUNCHES[k] = 0
+    history, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        history.append({k: float(v) for k, v in metrics.items()})
+    train_launches = dict(rg.LAUNCHES)
+    require(train_launches == {k: TRAIN_STEPS for k in train_launches}, f"train launch counts {train_launches}")
+    for i, m in enumerate(history):
+        require(all(np.isfinite(v) for v in m.values()), f"step {i}: metrics not finite {m}")
+        require(m["num_intersections"] <= MAX_INTERSECTIONS, f"step {i} saturated: {m['num_intersections']}")
+    first, last = history[0], history[-1]
+    require(last["loss_rgb"] < first["loss_rgb"], f"loss_rgb did not fall: {first['loss_rgb']} -> {last['loss_rgb']}")
+    require(state.step == TRAIN_STEPS and state.opt_state.count == TRAIN_STEPS, "step counts")
+    log("train", f"{TRAIN_STEPS} steps of make_train_step at {W}x{H}, {ALIVE} alive, C={len(TRAIN_MASK)}, "
+                 f"{TRACKS} tracks: finite, unsaturated (max "
+                 f"{max(int(m['num_intersections']) for m in history)} intersections); launches "
+                 f"{train_launches}; loss {first['loss']:.5f} -> {last['loss']:.5f}, loss_rgb "
+                 f"{first['loss_rgb']:.5f} -> {last['loss_rgb']:.5f}, psnr {first['psnr']:.3f} -> "
+                 f"{last['psnr']:.3f}; last flow {last['loss_flow']:.4f}, depth {last['loss_depth']:.4f}, "
+                 f"arap {last['loss_arap']:.3g}")
+    dense, info = density_step(state)
+    alive_after = int(dense.scene.alive.sum())
+    require(alive_after == int(info.num_alive), f"alive {alive_after} != num_alive {int(info.num_alive)}")
+    require(all(torch.isfinite(v).all().item() for v in dense.scene.params.values()), "density: not finite")
+    reset = reset_step(dense)
+    op = torch.sigmoid(reset.scene.params["opacity"])
+    require(torch.isfinite(op).all().item() and op.max().item() <= 0.01 + 1e-6, "opacity reset")
+    require(float(reset.opt_state.mu["opacity"].abs().sum()) == 0.0, "opacity moments not reset")
+    log("train", f"density step: cloned {int(info.num_cloned)}, split {int(info.num_split)}, pruned "
+                 f"{int(info.num_pruned)}, dropped {int(info.dropped)}, alive {alive_after} == num_alive; "
+                 f"opacity reset: max opacity {op.max().item():.4g}, opacity moments 0")
+
+    # ---- 11. training times ----------------------------------------------------
+    train_ms = statistics.median(step_ms[1:])
+    t_busy, t_top = device_profile(lambda: train_step(state0, batch), reps=3)
+    # the step's parts, each timed alone from the same state (wall, with a synchronize)
+    leaves = {k: v.detach().requires_grad_(True) for k, v in state0.scene.params.items()}
+    sinks = [torch.zeros((CAPACITY, 2), device=dev, requires_grad=True) for _ in range(2)]
+    arap_idx = losses.arap_sample(CAPACITY, tcfg.arap_sample_num, scene.alive, state0.generator, dev)
+    fwd = lambda: trainer.compute_losses(tcfg, tcfg.raster_cfg(), state0.scene, batch, arap_idx, 0,
+                                         leaves, *sinks, extr)[0]
+    grads = dict(zip(leaves, torch.autograd.grad(fwd(), list(leaves.values()), allow_unused=True)))
+    grads = {k: torch.zeros_like(leaves[k]) if g is None else g for k, g in grads.items()}
+    fwd_ms = wall_ms(fwd, reps=5)
+    fwd_bwd_ms = wall_ms(lambda: torch.autograd.grad(fwd(), list(leaves.values()) + sinks,
+                                                     allow_unused=True), reps=5)
+    adam_ms = wall_ms(lambda: optim.adam_update(tcfg.optim, state0.scene.params, grads, state0.opt_state),
+                      reps=5)
+    with torch.no_grad():
+        k3_ms = cuda_ms(lambda: rg.blend_backward(*k3_args), cpm)
+        k3_plain_ms = cuda_ms(lambda: rg.blend_backward_plain(*k3_args), cpm, PLAIN_REPS)
+        k4_ms = cuda_ms(lambda: rg.reduce_gaussians(*k4_args), cpm)
+        k4_plain_ms = cuda_ms(lambda: rg.reduce_gaussians_plain(*k4_args), cpm, PLAIN_REPS)
+        owner = tb.gid[:t_nint].long()
+        rows = dgrad[:t_nint]
+        k4_lib_ms = cuda_ms(lambda: torch.zeros_like(red).index_add_(0, owner, rows), cpm)
+    R = dgrad.shape[1]
+    Ct = len(TRAIN_MASK)
+    t_applied = int(tfwd[2].sum())
+    k3_bytes = (4 * t_nint + 4 * (tgx * tgy + 1) + N * (8 + 12 + 4 + 4 * Ct) + 8 * Ct
+                + H * W * (2 * Ct + 1) * 4 + t_nint * R * 4)
+    k3_ops = 256 * t_nint * 15 + t_applied * (40 + 5 * Ct + R)
+    k3_by = "operations" if k3_ops / FP32_FLOPS_PER_S > k3_bytes / HBM_BYTES_PER_S else "bytes"
+    k3_bound = max(k3_bytes / HBM_BYTES_PER_S, k3_ops / FP32_FLOPS_PER_S) * 1e3
+    k4_bytes = t_nint * (R * 4 + 8) + N * (8 + R * 4)
+    k4_bound = max(k4_bytes / HBM_BYTES_PER_S, t_nint * R / FP32_FLOPS_PER_S) * 1e3
+    log("times", f"train step {train_ms:.3f} ms wall (median of steps 2-{TRAIN_STEPS}; all: "
+                 + ", ".join(f"{t:.1f}" for t in step_ms) + f") {card}")
+    log("times", f"train step parts (wall, median of 5): render + losses {fwd_ms:.3f} ms, "
+                 f"with the backward {fwd_bwd_ms:.3f} ms, Adam over {len(grads)} attributes "
+                 f"{adam_ms:.3f} ms {card}")
+    if t_busy is None:
+        log("times", f"profiler recorded no device kernels; train-step busy share not measured {card}")
+    else:
+        log("times", f"train step device busy {t_busy:.3f} ms/step = {t_busy / train_ms:.1%} of the wall time "
+                     f"(torch.profiler, 3 steps); by kernel ms/step: "
+                     + "; ".join(f"{name[:60]} {ms:.4f}" for name, ms in t_top) + f" {card}")
+    log("times", f"K3 blend_backward {k3_ms:.4f} ms, plain {k3_plain_ms:.3f} ms, bound {k3_bound:.4f} ms "
+                 f"({k3_by}: {k3_ops:.3g} flops, {k3_bytes:.3g} B, {t_nint} slots, {t_applied} applied "
+                 f"pairs), {train_launches['blend_backward'] / TRAIN_STEPS:g} launch/step {card}")
+    log("times", f"K4 reduce_gaussians {k4_ms:.4f} ms, plain {k4_plain_ms:.3f} ms, index_add_ "
+                 f"{k4_lib_ms:.4f} ms, bound {k4_bound:.4f} ms (bytes: {k4_bytes:.3g} B), "
+                 f"{train_launches['reduce_gaussians'] / TRAIN_STEPS:g} launch/step {card}")
+
     kernels = [
         {"name": "blend_forward", "route": "cuda",
          "source": "splatter_a_video_tpu_torch/csrc/blend_forward.cu",
@@ -402,6 +649,18 @@ def main() -> int:
          "max_abs_err": float((keys - keys_p).abs().max().item()),
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": "bytes",
          "library_ms": None},
+        {"name": "blend_backward", "route": "cuda",
+         "source": "splatter_a_video_tpu_torch/csrc/blend_backward.cu",
+         "replaces": "splatter_a_video_tpu/ops/rasterize_tpu.py:414",
+         "launches": train_launches["blend_backward"], "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
+         "library_ms": None},
+        {"name": "reduce_gaussians", "route": "cuda",
+         "source": "splatter_a_video_tpu_torch/csrc/reduce_gaussians.cu",
+         "replaces": "splatter_a_video_tpu/ops/rasterize_tpu.py:865",
+         "launches": train_launches["reduce_gaussians"], "max_abs_err": float((red - red_p).abs().max()),
+         "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": "bytes",
+         "library_ms": k4_lib_ms},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,16 @@
-"""Carry a trained scene into the port as numpy arrays, and back.
+"""Carry a scene, or a whole train state, into the port as numpy arrays,
+and back.
 
 The JAX package stores scenes with orbax, which the port cannot read
 without JAX; a caller that has the JAX scene passes
 `{k: np.asarray(v)}` of its `params` and `aux` and its `SceneConfig`
 fields (a dict, e.g. `dataclasses.asdict(cfg)`, or the port's
 `SceneConfig`). Names, shapes and dtypes are checked against the config.
+
+A train state adds the optimizer (optax keeps one Adam state per
+attribute: pass its shared `count` and the `mu` / `nu` dicts) and the
+`DensifyState` arrays; the JAX key does not carry over (the port draws
+from a `torch.Generator`).
 """
 
 from __future__ import annotations
@@ -17,6 +23,9 @@ import torch
 
 from .device import resolve_device
 from .models.gaussians import GaussianScene, SceneConfig
+from .train import density as _density
+from .train import optim as _optim
+from .train import trainer as _trainer
 
 _MOTION = ("pos_poly_feat", "pos_fourier_feat", "rot_poly_feat", "rot_fourier_feat")
 
@@ -104,3 +113,53 @@ def scene_to_numpy(scene: GaussianScene):
     params = {k: v.detach().cpu().numpy() for k, v in scene.params.items()}
     aux = {k: v.detach().cpu().numpy() for k, v in scene.aux.items()}
     return params, aux, dataclasses.asdict(scene.cfg)
+
+
+def train_state_from_numpy(
+    params: Dict[str, np.ndarray],
+    aux: Dict[str, np.ndarray],
+    cfg: Union[dict, SceneConfig],
+    opt: dict,
+    densify: Dict[str, np.ndarray],
+    step: int,
+    seed: int = 0,
+    device="cuda",
+) -> "_trainer.TrainState":
+    """A port `TrainState` from numpy: the scene as `scene_from_numpy`,
+    opt = {"count": int, "mu": {name: array}, "nu": {name: array}} with
+    one entry per scene parameter, densify = the three `DensifyState`
+    arrays, the step count and the generator's seed."""
+    scene = scene_from_numpy(params, aux, cfg, device=device)
+    dev = scene.device
+    layout = {k: (tuple(v.shape), np.dtype(np.float32)) for k, v in scene.params.items()}
+    for kind in ("mu", "nu"):
+        _check(f"opt[{kind!r}]", {k: np.asarray(v) for k, v in opt[kind].items()}, layout)
+    cap = scene.cfg.capacity
+    dlayout = {k: ((cap,), np.dtype(np.float32)) for k in _density.DensifyState._fields}
+    _check("densify", {k: np.asarray(v) for k, v in densify.items()}, dlayout)
+    tensor = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return _trainer.TrainState(
+        scene=scene,
+        opt_state=_optim.AdamState(
+            count=int(opt["count"]),
+            mu={k: tensor(v) for k, v in opt["mu"].items()},
+            nu={k: tensor(v) for k, v in opt["nu"].items()},
+        ),
+        densify_state=_density.DensifyState(**{k: tensor(densify[k]) for k in dlayout}),
+        step=int(step),
+        generator=torch.Generator(device=dev).manual_seed(seed),
+    )
+
+
+def train_state_to_numpy(state: "_trainer.TrainState") -> dict:
+    """Inverse of `train_state_from_numpy` (without the generator)."""
+    params, aux, cfg = scene_to_numpy(state.scene)
+    arr = lambda t: t.detach().cpu().numpy()
+    return dict(
+        params=params, aux=aux, cfg=cfg,
+        opt={"count": state.opt_state.count,
+             "mu": {k: arr(v) for k, v in state.opt_state.mu.items()},
+             "nu": {k: arr(v) for k, v in state.opt_state.nu.items()}},
+        densify={k: arr(v) for k, v in state.densify_state._asdict().items()},
+        step=state.step,
+    )

@@ -3,18 +3,25 @@
 attribute tensors with an `alive` mask. Dead slots carry zero opacity and
 are parked behind the near plane, so they produce no tiles.
 
-`create_scene` (training set-up with its kNN scale init) comes with the
-training slice; trained scenes enter through `convert.scene_from_numpy`.
+A training run starts from `create_scene` (points, colours, kNN scale
+init); a trained scene enters through `convert.scene_from_numpy`.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..device import resolve_device
+from ..ops import knn as _knn
+from ..ops import sh as _sh
+from ..ops.quaternion import inverse_sigmoid
 from . import trajectory as _traj
+
+_MOTION = ("pos_poly_feat", "pos_fourier_feat", "rot_poly_feat", "rot_fourier_feat")
 
 
 @dataclass(frozen=True)
@@ -116,3 +123,83 @@ class GaussianScene:
     def get_render_attribute(self, name: str) -> torch.Tensor:
         """Sigmoid-activated extra attribute (mask / dino)."""
         return torch.sigmoid(self.params[name])
+
+
+def create_scene(
+    cfg: SceneConfig,
+    positions: np.ndarray,
+    colors: Optional[np.ndarray] = None,
+    init_opacity: float = 0.01,
+    track_seq: Optional[np.ndarray] = None,
+    generator: Optional[torch.Generator] = None,
+    device="cuda",
+) -> GaussianScene:
+    """A scene from N <= capacity points: scale log(sqrt(mean 3-NN squared
+    distance)), identity quaternions, opacity inverse_sigmoid(init_opacity),
+    zero SH rest, motion coefficients and attributes; the rest of the
+    capacity is dead and parked at z = -10.
+
+    colors: [N, 3] RGB in [0, 1]; None draws uniform(0.25, 0.75) from
+    `generator` (on the CPU). track_seq: [T, N, 3] for traj="cubic_spline".
+    traj="lbs" draws its skinning logits 0.01 N(0, 1) from `generator`.
+    """
+    dev = resolve_device(device)
+    N = positions.shape[0]
+    cap = cfg.capacity
+    if N > cap:
+        raise ValueError(f"{N} init points > capacity {cap}")
+    positions = np.asarray(positions, np.float32)
+    pos_full = np.zeros((cap, 3), np.float32)
+    pos_full[:N] = positions
+    pos_full[N:] = np.array([0.0, 0.0, -10.0], np.float32)
+
+    d2 = _knn.mean_knn3_sq_dist(torch.from_numpy(positions).to(dev)).cpu().numpy()
+    scaling = np.full((cap, 3), np.log(1e-3), np.float32)
+    scaling[:N] = np.log(np.sqrt(np.maximum(d2, 1e-7)))[:, None].repeat(3, 1)
+    rotation = np.zeros((cap, 4), np.float32)
+    rotation[:, 0] = 1.0
+    opacity = np.full(
+        (cap, 1), inverse_sigmoid(torch.tensor(init_opacity, dtype=torch.float32)).item(), np.float32)
+
+    if colors is None:
+        colors = torch.rand((N, 3), generator=generator).numpy() * 0.5 + 0.25
+    fdc = np.zeros((cap, 1, 3), np.float32)
+    fdc[:N] = _sh.rgb_to_sh(torch.as_tensor(np.asarray(colors, np.float32))).numpy()[:, None, :]
+    params = {
+        "position": pos_full,
+        "features_dc": fdc,
+        "features_rest": np.zeros((cap, (cfg.max_sh_degree + 1) ** 2 - 1, 3), np.float32),
+        "scaling": scaling,
+        "rotation": rotation,
+        "opacity": opacity,
+    }
+    if cfg.traj != "static":
+        params.update(
+            pos_poly_feat=np.zeros((cap, cfg.poly_dim, 3), np.float32),
+            pos_fourier_feat=np.zeros((cap, cfg.fourier_dim, 3), np.float32),
+            rot_poly_feat=np.zeros((cap, cfg.poly_dim, 4), np.float32),
+            rot_fourier_feat=np.zeros((cap, cfg.fourier_dim, 4), np.float32),
+        )
+    if cfg.traj == "lbs":
+        params.update(
+            pos_lbs_logits=0.01 * torch.randn((cap, cfg.num_bones), generator=generator).numpy(),
+            lbs_bone_poly=np.zeros((cfg.num_bones, cfg.poly_dim, 3), np.float32),
+            lbs_bone_fourier=np.zeros((cfg.num_bones, cfg.fourier_dim, 3), np.float32),
+        )
+    for name, dim in cfg.render_attributes:
+        if name not in _MOTION:   # motion coefficients double as attributes
+            params[name] = np.zeros((cap, dim), np.float32)
+    aux = {"alive": np.arange(cap) < N}
+    if cfg.traj == "cubic_spline":
+        if track_seq is None:
+            raise ValueError("cubic_spline trajectory needs track_seq [T,N,3]")
+        coeff, knots = _traj.fit_cubic_spline(np.asarray(track_seq, np.float32), cfg.frames_per_knot)
+        coeff_full = np.zeros((cap,) + coeff.shape[1:], np.float32)
+        coeff_full[:N] = coeff
+        params["pos_cubic_coeff"] = coeff_full
+        aux["spline_knots"] = knots
+    return GaussianScene(
+        params={k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in params.items()},
+        aux={k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in aux.items()},
+        cfg=cfg,
+    )

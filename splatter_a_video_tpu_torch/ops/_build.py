@@ -22,7 +22,7 @@ from typing import Dict, Sequence
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("blend_forward", "expand_intersections")
+KERNELS = ("blend_forward", "expand_intersections", "blend_backward", "reduce_gaussians")
 # --fmad=false: no contraction of a*b+c into one rounding, so each kernel
 # rounds exactly like its plain PyTorch version (see csrc/blend_forward.cu).
 NVCC_FLAGS = (

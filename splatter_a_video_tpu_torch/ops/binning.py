@@ -21,8 +21,10 @@ Gaussians whose depths agree in their top 20 bits differently
 reference.
 
 The `Binning` fields that only the TPU needed (`packed`, `chunk_base`,
-`perm`, `prepos`) are gone: the blend kernel gathers per-Gaussian records
-itself and there is no chunked stream.
+`perm`) are gone: the blend kernel gathers per-Gaussian records itself and
+there is no chunked stream. `order`, the sort's permutation, is the
+counterpart of JAX's `prepos`: the backward's per-Gaussian reduction
+inverts it.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ class Binning(NamedTuple):
     edges: torch.Tensor              # [T + 1] int32 per-tile [start, end) into gid
     offs: torch.Tensor               # [N] int32 exclusive prefix of tiles
     tiles: torch.Tensor              # [N] int32 clamped per-Gaussian tile counts
+    order: torch.Tensor              # [M] int64 sorted position -> pre-sort slot
     num_intersections: torch.Tensor  # [] int32 true count (may exceed M: saturation)
     num_tiles_x: int
     num_tiles_y: int
@@ -88,6 +91,7 @@ def bin_intersections(
         edges=edges,
         offs=offs,
         tiles=tiles,
+        order=order,
         num_intersections=total,
         num_tiles_x=tgx,
         num_tiles_y=tgy,

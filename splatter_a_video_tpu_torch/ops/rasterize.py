@@ -1,8 +1,11 @@
-"""Public rasterization API (counterpart of
-`splatter_a_video_tpu/ops/rasterize.py`), forward only.
+"""Public differentiable rasterization API (counterpart of
+`splatter_a_video_tpu/ops/rasterize.py`).
 
     SH eval -> projection -> cov3d -> EWA -> binning -> multi-channel
     alpha blend (one launch for every channel group).
+
+Gradients come from autograd for the point-wise stages and from the blend's
+autograd Function (K3 + K4) for the blend.
 """
 
 from __future__ import annotations
@@ -59,26 +62,34 @@ class RenderOutput(NamedTuple):
 
 def rasterize(
     uv, depth, conic, radius, tiles, rect_min, rect_max, opacity,
-    feature_groups: Dict[str, Tuple[torch.Tensor, float]],
+    feature_groups: Dict[str, Tuple[torch.Tensor, float, bool]],
     cfg: RasterizeConfig,
+    abs_sink: Optional[torch.Tensor] = None,
 ) -> RenderOutput:
     """Bin, sort and blend pre-projected Gaussians.
 
-    feature_groups: ordered name -> (values [N, c], bg) with a per-group
-    background scalar.
+    feature_groups: ordered name -> (values [N, c], bg, opacity_grad) with
+    a per-group background scalar; `opacity_grad=False` reproduces the
+    reference's `opacity.detach()` blend for extra attributes (their
+    gradient reaches uv and conic but not opacity). abs_sink: optional
+    [N, 2] zeros whose gradient collects the per-pixel sum of |d uv|.
     """
     names = list(feature_groups.keys())
     feats = torch.cat([feature_groups[k][0] for k in names], dim=1)
     bg: list = []
+    mask: list = []
     for k in names:
-        vals, b = feature_groups[k]
+        vals, b, og = feature_groups[k]
         bg.extend([float(b)] * vals.shape[1])
+        mask.extend([1.0 if og else 0.0] * vals.shape[1])
 
     img, final_T, ncontrib, gs_idx, nint = _rgpu.splat_scene(
         uv, conic, opacity, feats, depth, tiles, rect_min, rect_max,
         W=cfg.width,
         H=cfg.height,
         bg=bg,
+        alpha_grad_mask=mask,
+        abs_sink=abs_sink,
         K_idx=cfg.K_idx,
         max_intersections=cfg.max_intersections,
         max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
@@ -113,26 +124,27 @@ class Projected(NamedTuple):
     rect_min: torch.Tensor
     rect_max: torch.Tensor
     opacity: torch.Tensor
-    feature_groups: Dict[str, Tuple[torch.Tensor, float]]
+    feature_groups: Dict[str, Tuple[torch.Tensor, float, bool]]
 
 
 def render_gaussians(
     position, scaling, rotation, opacity, shs, extr, cfg: RasterizeConfig,
     intr=None, extra_features: Optional[Dict[str, torch.Tensor]] = None,
-    bg_color: float = 1.0,
+    bg_color: float = 1.0, abs_sink: Optional[torch.Tensor] = None,
 ) -> RenderOutput:
     """Render activated 3D Gaussians.
 
     position [N,3], scaling [N,3] (activated), rotation [N,4], opacity [N]
     (activated), shs [N,K,3]; extr [3,4] world->camera; intr (fx,fy,cx,cy)
-    for the perspective path. `extra_features` blend with bg 0; a "depth"
-    channel (bg 1) is always rendered. SH uses the fixed +z view direction
-    (the JAX package's default); the EWA rect is opacity-aware.
+    for the perspective path. `extra_features` blend with bg 0 and detached
+    opacity; a "depth" channel (bg 1) is always rendered. SH uses the fixed
+    +z view direction (the JAX package's default); the EWA rect is
+    opacity-aware. `abs_sink` as for `rasterize`.
     """
     return rasterize(*project_gaussians(
         position, scaling, rotation, opacity, shs, extr, cfg, intr,
         extra_features, bg_color,
-    ), cfg)
+    ), cfg, abs_sink=abs_sink)
 
 
 def project_gaussians(
@@ -169,12 +181,12 @@ def project_gaussians(
             cfg.block, max_r, cfg.rect_mode, opacity.detach(),
         )
 
-    groups: Dict[str, Tuple[torch.Tensor, float]] = {
-        "rgb": (rgb, float(bg_color)),
-        "depth": (depth[:, None], 1.0),
+    groups: Dict[str, Tuple[torch.Tensor, float, bool]] = {
+        "rgb": (rgb, float(bg_color), True),
+        "depth": (depth[:, None], 1.0, True),
     }
     if extra_features:
         for k, v in extra_features.items():
-            groups[k] = (v, 0.0)
+            groups[k] = (v, 0.0, False)
 
     return Projected(uv, depth, conic, radius, tiles, rect_min, rect_max, opacity, groups)

@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from splatter_a_video_tpu_torch import convert, inference
+from splatter_a_video_tpu_torch.models import gaussians
+from splatter_a_video_tpu_torch.train import trainer
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "splatter_a_video_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -49,7 +51,8 @@ def test_importing_the_port_loads_no_jax():
 @pytest.mark.parametrize(
     "fn",
     [inference.render_frame, inference.render_video, inference.render_nvs,
-     inference.render_stereo, convert.scene_from_numpy],
+     inference.render_stereo, convert.scene_from_numpy, convert.train_state_from_numpy,
+     gaussians.create_scene, trainer.init_train_state, trainer.make_train_step],
     ids=lambda f: f.__name__,
 )
 def test_entry_points_default_to_cuda(fn):
@@ -77,3 +80,7 @@ def test_render_without_device_raises_without_gpu():
         inference.render_frame(scene, 0.0, np.eye(3, 4), RasterizeConfig(width=16, height=16))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.scene_from_numpy({}, {}, {"capacity": 1, "num_frames": 1})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trainer.make_train_step(trainer.TrainerConfig(width=16, height=16, num_frames=1), np.eye(3, 4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trainer.init_train_state(trainer.TrainerConfig(width=16, height=16, num_frames=1), scene)

@@ -66,3 +66,48 @@ def test_blend_forward_matches_plain(tile, K, bias):
     for a, r in zip(out, ref):
         assert torch.equal(a, r)
     assert np.isfinite(out[0].cpu().numpy()).all() and int(out[2].sum()) > 0
+
+
+def _backward_inputs(tile, bias, C=7, seed=2):
+    uv, depth, conic, tiles, rmin, rmax, opacity, feats = projected(seed, block=tile)
+    feats = feats[:, :C].contiguous()
+    b = binning.bin_intersections(depth, tiles, rmin, rmax, W, H, 1 << 16, block=tile)
+    ob = torch.rand(uv.shape[0], device="cuda") * 0.1 if bias else None
+    bg = torch.linspace(0.0, 1.0, C, device="cuda")
+    mask = (torch.arange(C, device="cuda") < 4).float()   # rgb + depth reach opacity
+    uv, conic = uv.contiguous(), conic.contiguous()
+    image, final_T, ncontrib, _ = rasterize_gpu.blend_forward(
+        b.gid, b.edges, uv, conic, opacity, feats, bg, W, H, tile, 0, ob)
+    grad = torch.randn(H, W, C, generator=torch.Generator().manual_seed(seed)).cuda()
+    args = (b.gid, b.edges, uv, conic, opacity, feats, bg, mask, image, final_T, grad, W, H, tile, ob)
+    return b, args, ncontrib
+
+
+@pytest.mark.parametrize("tile,bias", [((16, 16), False), ((16, 16), True), ((32, 16), False)])
+def test_blend_backward_matches_plain(tile, bias):
+    """K3 repeats the plain version's arithmetic and its fixed summation
+    tree, and its replay applies exactly K1's Gaussians."""
+    b, args, k1_ncontrib = _backward_inputs(tile, bias)
+    before = rasterize_gpu.LAUNCHES["blend_backward"]
+    dgrad, ncontrib = rasterize_gpu.blend_backward(*args, return_ncontrib=True)
+    assert rasterize_gpu.LAUNCHES["blend_backward"] == before + 1
+    ref, ref_nc = rasterize_gpu.blend_backward_plain(*args, return_ncontrib=True)
+    torch.cuda.synchronize()
+    n = int(b.edges[-1])
+    assert torch.equal(ncontrib, k1_ncontrib) and torch.equal(ref_nc, k1_ncontrib)
+    assert torch.isfinite(dgrad[:n]).all()
+    assert torch.equal(dgrad[:n], ref[:n])
+
+
+def test_reduce_gaussians_matches_plain_and_is_deterministic():
+    b, args, _ = _backward_inputs((16, 16), False)
+    dgrad = rasterize_gpu.blend_backward(*args)
+    before = rasterize_gpu.LAUNCHES["reduce_gaussians"]
+    red = rasterize_gpu.reduce_gaussians(dgrad, b.order, b.offs, b.tiles)
+    assert rasterize_gpu.LAUNCHES["reduce_gaussians"] == before + 1
+    ref = rasterize_gpu.reduce_gaussians_plain(dgrad, b.order, b.offs, b.tiles)
+    again = rasterize_gpu.reduce_gaussians(rasterize_gpu.blend_backward(*args), b.order, b.offs, b.tiles)
+    torch.cuda.synchronize()
+    assert torch.equal(red, ref)
+    assert torch.equal(red, again)   # no atomics: bit-identical from run to run
+    assert float(red.abs().sum()) > 0
