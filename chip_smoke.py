@@ -8,19 +8,23 @@ and holds each against its plain PyTorch version at the flagship shapes
 (854x480, 131,000 Gaussians of which 100,000 alive, degree-3 SH):
 
   render: K1 blend_forward and K2 expand_intersections with the mask /
-     pos_poly_feat / dino render attributes (C = 20 blended channels), then
-     a 5-frame video through `inference.render_video`;
+     pos_poly_feat / dino render attributes (C = 20 blended channels, and
+     widened to C = 32, the largest channel bucket), then a 5-frame video
+     through `inference.render_video`;
   train: K3 blend_backward and K4 reduce_gaussians at the training blend
-     (rgb, depth, track_gs: C = 7, track_gs masked from opacity), the
-     gradients of the 64x48 training render on the card against the CPU,
-     then ten steps of `trainer.make_train_step` with a density step and an
-     opacity reset.
+     (rgb, depth, track_gs: C = 7, track_gs masked from opacity; also
+     widened to C = 32), the gradients of the 64x48 training render on the
+     card against the CPU, then ten steps of `trainer.make_train_step` with
+     a density step and an opacity reset.
 
 The launch counters are set to 0 just before each of the two main paths
 (the video render, the ten train steps) and read just after. Each phase
 prints one line; any failure ends the run with a non-zero exit and no
-result line. The line before the last is the kernel table as JSON, the
-last line `{"ok": true, "device": {...}}`. Needs one CUDA device.
+result line. The `[times]` lines and the kernel table carry each kernel's
+registers per thread, local (spill) bytes per thread and shared bytes per
+block at the main path's instance (`rasterize_gpu.kernel_attributes`).
+The line before the last is the kernel table as JSON, the last line
+`{"ok": true, "device": {...}}`. Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -40,12 +44,13 @@ CAPACITY, ALIVE, FRAMES = 131_000, 100_000, 48
 MAX_INTERSECTIONS = 1 << 20
 EXTRA = ("mask_attribute", "pos_poly_feat", "dino_attribute")
 TIMES = (0, 1.5, 7, 23, 47)
-ATOL = 2e-5             # image and final_T, as the port's CPU tests hold the blend
+ATOL = 2e-5             # the 64x48 render on the card against the CPU and the oracle
 REPS = 20
 DEVICE = "cuda"
 TRAIN_T1, TRAIN_T2, TRAIN_STEPS, TRACKS = 7, 23, 10, 4096
 TRAIN_MASK = (1.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0)   # rgb 3, depth 1 reach opacity; track_gs 3 not
-BWD_RTOL = 1e-6         # K3 / K4 against plain: max abs diff / largest plain entry
+WIDE_C = 32             # the largest channel bucket of K1 and K3
+BWD_RTOL = 1e-6         # K4 against plain: max abs diff / largest plain entry
 GRAD_ATOL, GRAD_RTOL = 3e-4, 2e-3   # gradients, the bars of tests/test_rasterize.py
 PLAIN_REPS = 3          # the plain versions read counts back, so each run waits for the card
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
@@ -268,6 +273,21 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def widen(feats, bg, seed: int):
+    """Features and bg padded to WIDE_C channels with seeded random columns."""
+    import torch
+
+    extra = WIDE_C - feats.shape[1]
+    gen = torch.Generator(device=feats.device).manual_seed(seed)
+    cols = torch.rand((feats.shape[0], extra), generator=gen, device=feats.device)
+    return (torch.cat([feats, cols], 1).contiguous(),
+            torch.cat([bg, torch.linspace(0.0, 1.0, extra, device=bg.device)]))
+
+
+def resources(a: dict) -> str:
+    return f"{a['regs']} regs, {a['local_bytes']} B local, {a['shared_bytes']} B shared"
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -323,7 +343,7 @@ def main() -> int:
             [b for v, b, _ in pr.feature_groups.values() for _ in range(v.shape[1])],
             dtype=torch.float32, device=dev,
         )
-        return pr.uv.contiguous(), pr.conic.contiguous(), pr.opacity.contiguous(), feats, bg
+        return pr.uv, pr.conic, pr.opacity, feats, bg
 
     # ---- 4. K2 against its plain version ------------------------------------
     with torch.no_grad():
@@ -355,16 +375,18 @@ def main() -> int:
         C = feats.shape[1]
         require(C == 20, f"flagship blend carries {C} channels, expected 20")
 
-        def k1_check(tag, bb, tile, K=0, bias=None):
-            out = rg.blend_forward(bb.gid, bb.edges, uv, conic, opac, feats, bg, W, H, tile, K, bias)
-            ref = rg.blend_forward_plain(bb.gid, bb.edges, uv, conic, opac, feats, bg, W, H, tile, K, bias)
+        def k1_check(tag, bb, tile, K=0, bias=None, fb=None):
+            f, g = (feats, bg) if fb is None else fb
+            out = rg.blend_forward(bb.gid, bb.edges, uv, conic, opac, f, g, W, H, tile, K, bias)
+            ref = rg.blend_forward_plain(bb.gid, bb.edges, uv, conic, opac, f, g, W, H, tile, K, bias)
             torch.cuda.synchronize()
             err = max((out[0] - ref[0]).abs().max().item(), (out[1] - ref[1]).abs().max().item())
             bad_nc = int((out[2] != ref[2]).sum())
             bad_gs = int((out[3] != ref[3]).sum())
-            log("K1", f"{tag}: image/final_T max abs diff {err:.3g} (tol {ATOL}), "
-                      f"ncontrib mismatches {bad_nc}, gs_idx mismatches {bad_gs}")
-            require(err <= ATOL and bad_nc == 0 and bad_gs == 0, f"K1 {tag} differs from plain")
+            same = all(torch.equal(a, r) for a, r in zip(out, ref))
+            log("K1", f"{tag}: image/final_T max abs diff {err:.3g}, ncontrib mismatches {bad_nc}, "
+                      f"gs_idx mismatches {bad_gs}; torch.equal on all four outputs: {same}")
+            require(same, f"K1 {tag} differs from plain")
             require(torch.isfinite(out[0]).all().item(), f"K1 {tag} not finite")
             return err, out
 
@@ -373,6 +395,7 @@ def main() -> int:
         bias = torch.from_numpy(
             np.random.RandomState(args.seed + 1).uniform(0.0, 0.1, CAPACITY).astype(np.float32)).to(dev)
         k1_check("16x16 opacity_bias", b, (16, 16), bias=bias)
+        k1_check(f"16x16 C={WIDE_C}", b, (16, 16), fb=widen(feats, bg, args.seed + 5))
         rcfg32 = rasterize.RasterizeConfig(width=W, height=H, max_intersections=MAX_INTERSECTIONS,
                                            block_x=32, block_y=16)
         pr32 = project(0.0, rcfg32)
@@ -476,9 +499,11 @@ def main() -> int:
     extr = torch.as_tensor(cam.extrinsic, dtype=torch.float32, device=dev)
     mask_t = torch.tensor(TRAIN_MASK, device=dev)
 
-    def train_blend_inputs(tile, bias=None):
-        """Binning, K1 outputs and K3 arguments of the training render of
-        frame TRAIN_T1 at `tile`, with a seeded dL/dimage."""
+    def train_blend_inputs(tile, bias=None, wide=False):
+        """Binning, K1 outputs (held to K1's plain version) and K3 arguments
+        of the training render of frame TRAIN_T1 at `tile`, with a seeded
+        dL/dimage; `wide` pads the features to WIDE_C channels (the extra
+        ones reach opacity)."""
         rc = dataclasses.replace(tcfg, block_x=tile[0], block_y=tile[1]).raster_cfg()
         inp = trainer.scene_render_inputs(scene, TRAIN_T1)
         tp = trainer.project_for_training(inp, extr, rc, {"track_gs": scene.get_position(TRAIN_T2)},
@@ -487,27 +512,40 @@ def main() -> int:
                                        MAX_INTERSECTIONS, rc.max_tiles_per_gaussian, rc.block)
         tu, tc, to, tf, tbg = blend_inputs(tp)
         require(tf.shape[1] == len(TRAIN_MASK), f"training blend carries {tf.shape[1]} channels")
-        fwd = rg.blend_forward(tb.gid, tb.edges, tu, tc, to, tf, tbg, W, H, tile, 0, bias)
+        tmask = mask_t
+        if wide:
+            tf, tbg = widen(tf, tbg, args.seed + 6)
+            tmask = torch.cat([mask_t, torch.ones(WIDE_C - len(TRAIN_MASK), device=dev)])
+        k1a = (tb.gid, tb.edges, tu, tc, to, tf, tbg, W, H, tile, 0, bias)
+        fwd = rg.blend_forward(*k1a)
+        ref = rg.blend_forward_plain(*k1a)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, r) for a, r in zip(fwd, ref))
+        log("K1", f"training blend {tile[0]}x{tile[1]} C={tf.shape[1]}"
+                  + ("" if bias is None else " opacity_bias")
+                  + f": torch.equal on all four outputs: {same}")
+        require(same, f"K1 at the training blend {tile} C={tf.shape[1]} differs from plain")
         g = torch.randn((H, W, tf.shape[1]), generator=torch.Generator(device=dev).manual_seed(args.seed),
                         device=dev)
-        return tb, fwd, (tb.gid, tb.edges, tu, tc, to, tf, tbg, mask_t, fwd[0], fwd[1], g, W, H, tile, bias)
+        return tb, fwd, (tb.gid, tb.edges, tu, tc, to, tf, tbg, tmask, fwd[0], fwd[1], g, W, H, tile, bias)
 
     def rel_err(a, ref):
         return (a - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
 
-    def k3_check(tag, tile, bias=None):
-        tb, fwd, k3a = train_blend_inputs(tile, bias)
+    def k3_check(tag, tile, bias=None, wide=False):
+        tb, fwd, k3a = train_blend_inputs(tile, bias, wide)
         n = int(tb.edges[-1])
         dg, nc = rg.blend_backward(*k3a, return_ncontrib=True)
         ref, ref_nc = rg.blend_backward_plain(*k3a, return_ncontrib=True)
         torch.cuda.synchronize()
         err, abs_err = rel_err(dg[:n], ref[:n]), (dg[:n] - ref[:n]).abs().max().item()
         bad_k1, bad_plain = int((nc != fwd[2]).sum()), int((ref_nc != fwd[2]).sum())
-        log("K3", f"{tag}: {n} slots x {dg.shape[1]} rows, max abs diff / max |plain| {err:.3g} "
-                  f"(tol {BWD_RTOL}), max abs diff {abs_err:.3g}; "
+        same = torch.equal(dg[:n], ref[:n])
+        log("K3", f"{tag}: {n} slots x {dg.shape[1]} rows, max abs diff / max |plain| {err:.3g}, "
+                  f"max abs diff {abs_err:.3g}, torch.equal {same}; "
                   f"replay ncontrib vs K1 mismatches {bad_k1}, plain vs K1 {bad_plain}")
         require(torch.isfinite(dg[:n]).all().item(), f"K3 {tag} not finite")
-        require(err <= BWD_RTOL and bad_k1 == 0 and bad_plain == 0, f"K3 {tag} differs")
+        require(same and bad_k1 == 0 and bad_plain == 0, f"K3 {tag} differs")
         return tb, fwd, k3a, dg, abs_err
 
     with torch.no_grad():
@@ -516,6 +554,7 @@ def main() -> int:
         require(t_nint <= MAX_INTERSECTIONS, f"training frame saturated: {t_nint} > {MAX_INTERSECTIONS}")
         k3_check("16x16 opacity_bias", (16, 16), bias)
         k3_check("32x16", (32, 16))
+        k3_check(f"16x16 C={WIDE_C}", (16, 16), wide=True)
 
         k4_args = (dgrad, tb.order, tb.offs, tb.tiles)
         red = rg.reduce_gaussians(*k4_args)
@@ -599,6 +638,8 @@ def main() -> int:
     adam_ms = wall_ms(lambda: optim.adam_update(tcfg.optim, state0.scene.params, grads, state0.opt_state),
                       reps=5)
     with torch.no_grad():
+        k1_train_args = k3_args[:7] + (W, H)
+        k1_train_ms = cuda_ms(lambda: rg.blend_forward(*k1_train_args), cpm)
         k3_ms = cuda_ms(lambda: rg.blend_backward(*k3_args), cpm)
         k3_plain_ms = cuda_ms(lambda: rg.blend_backward_plain(*k3_args), cpm, PLAIN_REPS)
         k4_ms = cuda_ms(lambda: rg.reduce_gaussians(*k4_args), cpm)
@@ -608,6 +649,11 @@ def main() -> int:
         k4_lib_ms = cuda_ms(lambda: torch.zeros_like(red).index_add_(0, owner, rows), cpm)
     R = dgrad.shape[1]
     Ct = len(TRAIN_MASK)
+    attrs = {"blend_forward": rg.kernel_attributes("blend_forward", C, (16, 16)),
+             "expand_intersections": rg.kernel_attributes("expand_intersections"),
+             "blend_backward": rg.kernel_attributes("blend_backward", Ct, (16, 16)),
+             "reduce_gaussians": rg.kernel_attributes("reduce_gaussians")}
+    k1_train_attrs = rg.kernel_attributes("blend_forward", Ct, (16, 16))
     t_applied = int(tfwd[2].sum())
     k3_bytes = (4 * t_nint + 4 * (tgx * tgy + 1) + N * (8 + 12 + 4 + 4 * Ct) + 8 * Ct
                 + H * W * (2 * Ct + 1) * 4 + t_nint * R * 4)
@@ -629,10 +675,17 @@ def main() -> int:
                      + "; ".join(f"{name[:60]} {ms:.4f}" for name, ms in t_top) + f" {card}")
     log("times", f"K3 blend_backward {k3_ms:.4f} ms, plain {k3_plain_ms:.3f} ms, bound {k3_bound:.4f} ms "
                  f"({k3_by}: {k3_ops:.3g} flops, {k3_bytes:.3g} B, {t_nint} slots, {t_applied} applied "
-                 f"pairs), {train_launches['blend_backward'] / TRAIN_STEPS:g} launch/step {card}")
+                 f"pairs), {train_launches['blend_backward'] / TRAIN_STEPS:g} launch/step; "
+                 f"{resources(attrs['blend_backward'])} (C={Ct}, 16x16) {card}")
     log("times", f"K4 reduce_gaussians {k4_ms:.4f} ms, plain {k4_plain_ms:.3f} ms, index_add_ "
                  f"{k4_lib_ms:.4f} ms, bound {k4_bound:.4f} ms (bytes: {k4_bytes:.3g} B), "
-                 f"{train_launches['reduce_gaussians'] / TRAIN_STEPS:g} launch/step {card}")
+                 f"{train_launches['reduce_gaussians'] / TRAIN_STEPS:g} launch/step; "
+                 f"{resources(attrs['reduce_gaussians'])} {card}")
+    log("times", f"K1 blend_forward at the training blend (C={Ct}, 16x16) {k1_train_ms:.4f} ms, "
+                 f"{train_launches['blend_forward'] / TRAIN_STEPS:g} launch/step; "
+                 f"{resources(k1_train_attrs)} {card}")
+    log("times", f"K1 blend_forward (C={C}, 16x16): {resources(attrs['blend_forward'])}; "
+                 f"K2 expand_intersections: {resources(attrs['expand_intersections'])} {card}")
 
     kernels = [
         {"name": "blend_forward", "route": "cuda",
@@ -662,6 +715,8 @@ def main() -> int:
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": "bytes",
          "library_ms": k4_lib_ms},
     ]
+    for k in kernels:
+        k.update(attrs[k["name"]])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -11,16 +11,32 @@
 // Bound: operations. Every pixel of a tile evaluates the Gaussian quadratic
 // and exp for each Gaussian binned to its tile (~15 flops) until it
 // saturates, plus 2*C flops per applied pair; bytes are only the sorted
-// ids, the per-Gaussian records and the [H, W, C] output. So the design
-// keeps the inner loop on shared memory and registers:
-//  * the block walks its range edges[t]:edges[t+1] in batches of
-//    blockDim.x; each thread loads one Gaussian's id, uv, conic, opacity
-//    (and bias) into shared memory, so every record is read from device
-//    memory once per tile, not once per pixel;
-//  * the C accumulators live in registers (MAX_C unrolled, masked by C);
-//    features are read only for applied Gaussians;
-//  * the block leaves its range as soon as every pixel is done
-//    (__syncthreads_count), which is what bounds the work in opaque scenes.
+// ids, the per-Gaussian records and the [H, W, C] output. What held the
+// first version back, and what this one does about it:
+//  * width: one kernel for every width ran 32 guarded accumulations per
+//    applied pair, whatever C, under a 1024-thread register bound. The
+//    kernel is now a template over a channel bucket CB (4, 8, ..., 32: the
+//    accumulators, C rounded up to a multiple of 4) and the block size NT
+//    (256, 512, 1024), each instance with its own __launch_bounds__, so
+//    C = 20 on 16x16 tiles runs 20 accumulations compiled for 256 threads
+//    (the explicit minimum of one block per SM matters: without it ptxas
+//    aims at more blocks and spills);
+//  * loads: each slot's record was gathered from seven arrays through gid
+//    with nothing overlapping the load. The wrapper now packs one 32-byte
+//    record per Gaussian (uv, conic, opacity, bias, pad), and the block
+//    copies batch k+1 (two 16-byte cp.async per record, plus its ids and
+//    feature rows, 4 bytes at a time) into the second of two shared
+//    buffers while it blends batch k. The record layout and this staging
+//    are K3's too, in `blend_batch.cuh`;
+//  * feature rows: every applied pair read its C floats one at a time from
+//    global memory; they are now staged in shared memory with the batch,
+//    each row padded to a multiple of 4 floats, and read as float4 (a
+//    broadcast read: all lanes of a warp read the same slot);
+//  * batch size: it was the block size; it is now S = 128 slots, so a
+//    double buffer of records and rows stays under 48 KB at C = 32.
+// The block still leaves its range as soon as every pixel is done
+// (__syncthreads_count once per batch), which is what bounds the work in
+// opaque scenes, and the per-pixel arithmetic is unchanged.
 //
 // Arithmetic: plain expf, and the file is compiled with --fmad=false, so
 // each product and sum rounds exactly as in the plain PyTorch version
@@ -33,46 +49,37 @@
 
 #include <cuda_runtime.h>
 
+#include "blend_batch.cuh"
+
 namespace {
 
-constexpr int MAX_C = 32;
-constexpr float ALPHA_MIN = 1.0f / 255.0f;
-constexpr float ALPHA_MAX = 0.99f;
-constexpr float T_EPS = 1e-4f;
+using namespace blend;
 
-__global__ void __launch_bounds__(1024) blend_forward_kernel(
+constexpr int S = 128;   // slots per batch
+using FwdBatch = Batch<S, true>;
+
+template <int CB, int NT>
+__global__ void __launch_bounds__(NT, 1) blend_forward_kernel(
     const int* __restrict__ gid, const int* __restrict__ edges,
-    const float* __restrict__ uv, const float* __restrict__ conic,
-    const float* __restrict__ opacity, const float* __restrict__ features,
-    const float* __restrict__ opacity_bias, const float* __restrict__ bg,
-    int C, int W, int H, int tw, int tgx, int K,
-    float* __restrict__ image, float* __restrict__ final_T,
+    const float4* __restrict__ rec, const float* __restrict__ features,
+    const float* __restrict__ bg, int has_bias, int C, int W, int H, int tw, int tgx,
+    int K, float* __restrict__ image, float* __restrict__ final_T,
     int* __restrict__ ncontrib, int* __restrict__ gs_idx) {
-  extern __shared__ float smem[];
-  const int B = blockDim.x;
-  int* s_gid = reinterpret_cast<int*>(smem);
-  float* s_ux = smem + B;
-  float* s_uy = smem + 2 * B;
-  float* s_ca = smem + 3 * B;
-  float* s_cb = smem + 4 * B;
-  float* s_cc = smem + 5 * B;
-  float* s_op = smem + 6 * B;
-  float* s_bias = smem + 7 * B;
-
+  extern __shared__ float4 smem[];
+  const int P = blockDim.x;
   const int t = blockIdx.x;
   const int x = (t % tgx) * tw + threadIdx.x % tw;
-  const int y = (t / tgx) * (B / tw) + threadIdx.x / tw;
+  const int y = (t / tgx) * (P / tw) + threadIdx.x / tw;
   const bool inside = x < W && y < H;
   const float pxf = static_cast<float>(x);
   const float pyf = static_cast<float>(y);
   const long long pix = static_cast<long long>(y) * W + x;
   const int start = edges[t];
   const int end = edges[t + 1];
-  const bool has_bias = opacity_bias != nullptr;
 
-  float acc[MAX_C];
+  float acc[CB];
 #pragma unroll
-  for (int c = 0; c < MAX_C; ++c) acc[c] = 0.0f;
+  for (int c = 0; c < CB; ++c) acc[c] = 0.0f;
   float T = 1.0f;
   int cnt = 0;
   bool done = !inside;
@@ -80,31 +87,29 @@ __global__ void __launch_bounds__(1024) blend_forward_kernel(
     for (int k = 0; k < K; ++k) gs_idx[pix * K + k] = -1;
   }
 
-  for (int base = start; base < end; base += B) {
-    // also the barrier that keeps the previous batch's shared data alive
-    if (__syncthreads_count(done) == B) break;
-    const int idx = base + threadIdx.x;
-    if (idx < end) {
-      const int g = gid[idx];
-      s_gid[threadIdx.x] = g;
-      s_ux[threadIdx.x] = uv[2 * g];
-      s_uy[threadIdx.x] = uv[2 * g + 1];
-      s_ca[threadIdx.x] = conic[3 * g];
-      s_cb[threadIdx.x] = conic[3 * g + 1];
-      s_cc[threadIdx.x] = conic[3 * g + 2];
-      s_op[threadIdx.x] = opacity[g];
-      s_bias[threadIdx.x] = has_bias ? opacity_bias[g] : 0.0f;
+  if (start < end) FwdBatch::at(smem, 0, C).load(gid, rec, features, C, start, min(S, end - start));
+  __pipeline_commit();
+  int q = 0;
+  for (int base = start; base < end; base += S, q ^= 1) {
+    // Batch q has landed for this thread's copies; the barrier makes every
+    // thread's copies visible and frees buffer q ^ 1 (read last batch).
+    __pipeline_wait_prior(0);
+    if (__syncthreads_count(done) == P) break;
+    if (base + S < end) {
+      FwdBatch::at(smem, q ^ 1, C).load(gid, rec, features, C, base + S, min(S, end - base - S));
     }
-    __syncthreads();
-    const int n = min(B, end - base);
+    __pipeline_commit();
+    const FwdBatch b = FwdBatch::at(smem, q, C);
+    const int n = min(S, end - base);
     for (int j = 0; !done && j < n; ++j) {
-      const float vx = s_ux[j] - pxf;
-      const float vy = s_uy[j] - pyf;
-      const float power =
-          -0.5f * (s_ca[j] * (vx * vx) + s_cc[j] * (vy * vy)) - s_cb[j] * vx * vy;
+      const float4 r0 = b.rec[2 * j];       // ux, uy, conic a, conic b
+      const float4 r1 = b.rec[2 * j + 1];   // conic c, opacity, bias, pad
+      const float vx = r0.x - pxf;
+      const float vy = r0.y - pyf;
+      const float power = -0.5f * (r0.z * (vx * vx) + r1.x * (vy * vy)) - r0.w * vx * vy;
       if (power > 0.0f) continue;
-      float raw = s_op[j] * expf(power);
-      if (has_bias) raw = raw + s_bias[j];
+      float raw = r1.y * expf(power);
+      if (has_bias) raw = raw + r1.z;
       const float alpha = fminf(ALPHA_MAX, raw);
       if (alpha < ALPHA_MIN) continue;
       const float next_T = T * (1.0f - alpha);
@@ -113,13 +118,17 @@ __global__ void __launch_bounds__(1024) blend_forward_kernel(
         break;
       }
       const float w = alpha * T;
-      const int g = s_gid[j];
-      const float* f = features + static_cast<long long>(g) * C;
+      const float4* f = b.feat + j * (row_floats(C) / 4);
 #pragma unroll
-      for (int c = 0; c < MAX_C; ++c) {
-        if (c < C) acc[c] = acc[c] + w * f[c];
+      for (int c4 = 0; c4 < CB / 4; ++c4) {
+        if (4 * c4 >= C) break;
+        const float4 v = f[c4];
+        acc[4 * c4] = acc[4 * c4] + w * v.x;
+        if (4 * c4 + 1 < C) acc[4 * c4 + 1] = acc[4 * c4 + 1] + w * v.y;
+        if (4 * c4 + 2 < C) acc[4 * c4 + 2] = acc[4 * c4 + 2] + w * v.z;
+        if (4 * c4 + 3 < C) acc[4 * c4 + 3] = acc[4 * c4 + 3] + w * v.w;
       }
-      if (cnt < K) gs_idx[pix * K + cnt] = g;
+      if (cnt < K) gs_idx[pix * K + cnt] = b.gid[j];
       ++cnt;
       T = next_T;
     }
@@ -127,7 +136,7 @@ __global__ void __launch_bounds__(1024) blend_forward_kernel(
 
   if (inside) {
 #pragma unroll
-    for (int c = 0; c < MAX_C; ++c) {
+    for (int c = 0; c < CB; ++c) {
       if (c < C) image[pix * C + c] = acc[c] + T * bg[c];
     }
     final_T[pix] = T;
@@ -135,31 +144,63 @@ __global__ void __launch_bounds__(1024) blend_forward_kernel(
   }
 }
 
+using KernelFn = void (*)(const int*, const int*, const float4*, const float*, const float*,
+                          int, int, int, int, int, int, int, float*, float*, int*, int*);
+
+#define BLEND_FORWARD_BUCKET(CB) \
+  {blend_forward_kernel<CB, 256>, blend_forward_kernel<CB, 512>, blend_forward_kernel<CB, 1024>}
+
+// [channel bucket 4, 8, ..., 32][block bound 256 / 512 / 1024]
+const KernelFn KERNELS[8][3] = {
+    BLEND_FORWARD_BUCKET(4),  BLEND_FORWARD_BUCKET(8),  BLEND_FORWARD_BUCKET(12),
+    BLEND_FORWARD_BUCKET(16), BLEND_FORWARD_BUCKET(20), BLEND_FORWARD_BUCKET(24),
+    BLEND_FORWARD_BUCKET(28), BLEND_FORWARD_BUCKET(32),
+};
+
+KernelFn pick(int C, int threads) {
+  const int cb = C <= 4 ? 0 : (C - 1) / 4;
+  const int nt = threads <= 256 ? 0 : (threads <= 512 ? 1 : 2);
+  return KERNELS[cb][nt];
+}
+
+size_t shared_bytes(int C) { return 2 * sizeof(float4) * static_cast<size_t>(FwdBatch::float4s(C)); }
+
 }  // namespace
 
-// gid: [M] int32 tile-sorted ids; edges: [T+1] int32; uv: [N, 2], conic:
-// [N, 3], opacity: [N], features: [N, C], opacity_bias: [N] or null, bg:
-// [C] (all f32, on the device). Outputs: image [H, W, C] f32, final_T
-// [H, W] f32, ncontrib [H, W] int32, gs_idx [H, W, K] int32 or null when
-// K == 0. C <= MAX_C and tw*th <= 1024 (the caller checks both). One block
-// of tw*th threads per tile. Returns cudaGetLastError().
-extern "C" int blend_forward(const void* gid, const void* edges, const void* uv,
-                             const void* conic, const void* opacity,
-                             const void* features, const void* opacity_bias,
-                             const void* bg, int C, int W, int H, int tw, int th,
-                             int K, void* image, void* final_T, void* ncontrib,
-                             void* gs_idx, void* stream) {
+// gid: [M] int32 tile-sorted ids; edges: [T+1] int32; rec: [N, 8] f32
+// packed records (ux, uy, conic a, b, c, opacity, bias, 0; bias read only
+// when has_bias); features: [N, C]; bg: [C] (all on the device). Outputs:
+// image [H, W, C] f32, final_T [H, W] f32, ncontrib [H, W] int32, gs_idx
+// [H, W, K] int32 or null when K == 0. 1 <= C <= 32 and tw*th <= 1024 (the
+// caller checks both). One block of tw*th threads per tile. Returns
+// cudaGetLastError().
+extern "C" int blend_forward(const void* gid, const void* edges, const void* rec,
+                             const void* features, const void* bg, int has_bias, int C,
+                             int W, int H, int tw, int th, int K, void* image,
+                             void* final_T, void* ncontrib, void* gs_idx, void* stream) {
   const int tgx = (W + tw - 1) / tw;
   const int tgy = (H + th - 1) / th;
   const int threads = tw * th;
-  const size_t shared = 8 * sizeof(float) * static_cast<size_t>(threads);
-  blend_forward_kernel<<<tgx * tgy, threads, shared, static_cast<cudaStream_t>(stream)>>>(
+  const KernelFn fn = pick(C, threads);
+  const size_t shared = shared_bytes(C);
+  fn<<<tgx * tgy, threads, shared, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(gid), static_cast<const int*>(edges),
-      static_cast<const float*>(uv), static_cast<const float*>(conic),
-      static_cast<const float*>(opacity), static_cast<const float*>(features),
-      static_cast<const float*>(opacity_bias), static_cast<const float*>(bg),
-      C, W, H, tw, tgx, K, static_cast<float*>(image),
-      static_cast<float*>(final_T), static_cast<int*>(ncontrib),
-      static_cast<int*>(gs_idx));
+      static_cast<const float4*>(rec), static_cast<const float*>(features),
+      static_cast<const float*>(bg), has_bias, C, W, H, tw, tgx, K,
+      static_cast<float*>(image), static_cast<float*>(final_T),
+      static_cast<int*>(ncontrib), static_cast<int*>(gs_idx));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Registers per thread, local (spill) bytes per thread and shared bytes per
+// block (static + dynamic) of the instance a launch with these C and tile
+// sizes runs: out[0..2]. Returns the CUDA error code.
+extern "C" int blend_forward_attributes(int C, int tw, int th, int* out) {
+  cudaFuncAttributes a;
+  const int err = static_cast<int>(cudaFuncGetAttributes(&a, pick(C, tw * th)));
+  if (err != 0) return err;
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = static_cast<int>(a.sharedSizeBytes + shared_bytes(C));
+  return 0;
 }

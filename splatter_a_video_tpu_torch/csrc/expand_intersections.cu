@@ -78,3 +78,17 @@ extern "C" int expand_intersections(const void* offs, const void* tiles,
       static_cast<long long*>(keys), static_cast<int*>(gid));
   return static_cast<int>(cudaGetLastError());
 }
+
+// Registers per thread, local (spill) bytes per thread and shared bytes per
+// block of the kernel: out[0..2]. The arguments are those of the other
+// kernels' attribute functions and are not used. Returns the CUDA error code.
+extern "C" int expand_intersections_attributes(int C, int tw, int th, int* out) {
+  (void)C, (void)tw, (void)th;
+  cudaFuncAttributes a;
+  const int err = static_cast<int>(cudaFuncGetAttributes(&a, expand_intersections_kernel));
+  if (err != 0) return err;
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = static_cast<int>(a.sharedSizeBytes);
+  return 0;
+}

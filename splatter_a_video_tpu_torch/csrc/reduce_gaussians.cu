@@ -70,3 +70,18 @@ extern "C" int reduce_gaussians(const void* dgrad, const void* order, const void
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// Registers per thread, local (spill) bytes per thread and shared bytes per
+// block of the summing kernel (the permutation inverse is one store per
+// thread): out[0..2]. The arguments are those of the other kernels'
+// attribute functions and are not used. Returns the CUDA error code.
+extern "C" int reduce_gaussians_attributes(int C, int tw, int th, int* out) {
+  (void)C, (void)tw, (void)th;
+  cudaFuncAttributes a;
+  const int err = static_cast<int>(cudaFuncGetAttributes(&a, reduce_gaussians_kernel));
+  if (err != 0) return err;
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = static_cast<int>(a.sharedSizeBytes);
+  return 0;
+}

@@ -3,13 +3,25 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by nvcc
 into its own shared library, loaded with ctypes (no PyTorch headers, so a
 build takes seconds). Libraries go into `splatter_a_video_tpu_torch/_build/`
-(git-ignored), named by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is not. Several kernels are built
-in parallel, one nvcc process each.
+(git-ignored), named by a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source is rebuilt and an
+unchanged one is not. Several kernels are built in parallel, one nvcc
+process each.
+
+    python -m splatter_a_video_tpu_torch.ops._build --ptxas [FILE.cu ...]
+
+compiles the given sources (by default those of `csrc/`) with the same
+flags plus `-Xptxas -v` and prints ptxas's report: registers, spill
+stores and loads, and static shared memory of every kernel instance. It
+reads any source, such as an older tree's, and loads nothing: that is what
+it adds to `rasterize_gpu.kernel_attributes`, which reports only the
+instance a launch would run, and only for sources that export
+`<name>_attributes`.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import hashlib
 import os
@@ -45,7 +57,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # every header of csrc/ goes into each hash: an edited header rebuilds
+    # the kernels that include it
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
@@ -87,3 +101,32 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+def ptxas_report(sources: Sequence[Path]) -> str:
+    """ptxas's `-v` report of each source, compiled to an object file in
+    `_build/ptxas/` with the kernels' flags, all nvcc processes at once."""
+    out_dir = BUILD_DIR / "ptxas"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    procs = [
+        (src, subprocess.Popen(
+            [_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o", str(out_dir / f"{Path(src).stem}.o"), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for src in sources
+    ]
+    report = []
+    for src, p in procs:
+        text, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src} (exit {p.returncode}):\n{text}")
+        report.append(f"== {src}\n{text.strip()}")
+    return "\n".join(report)
+
+
+if __name__ == "__main__":
+    ap = argparse.ArgumentParser(description="Report the registers, spills and shared memory of CUDA kernels.")
+    ap.add_argument("--ptxas", nargs="*", metavar="FILE.cu", required=True,
+                    help="print ptxas -v for these sources (default: every csrc/*.cu)")
+    args = ap.parse_args()
+    print(ptxas_report([Path(f) for f in args.ptxas] or [CSRC / f"{n}.cu" for n in KERNELS]))

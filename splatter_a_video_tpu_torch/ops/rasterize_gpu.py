@@ -14,7 +14,10 @@ plain PyTorch versions, their launch counters and `splat_scene`:
 Each wrapper runs the plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel or raises; it never falls back. Kernels run
 on the current stream, do not synchronise and allocate nothing: the
-wrappers allocate the outputs.
+wrappers allocate the outputs. K1 and K3 read each Gaussian's uv, conic,
+opacity and bias as one 32-byte record that their wrappers pack
+(`pack_records`). `kernel_attributes` reports the registers, spills and
+shared memory of the kernel instance a launch would run.
 
 `splat_scene` is differentiable: its autograd Function runs K1 forward
 and K3 + K4 backward, with no float atomics (the same gradients from run
@@ -35,30 +38,56 @@ from .projection import tile_grid
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
-MAX_CHANNELS = 32   # MAX_C of csrc/blend_forward.cu and csrc/blend_backward.cu
-MAX_BWD_PIXELS = 512  # __launch_bounds__ of csrc/blend_backward.cu
+MAX_CHANNELS = 32   # largest channel bucket of csrc/blend_forward.cu and csrc/blend_backward.cu
+MAX_BWD_PIXELS = 512  # largest block of csrc/blend_backward.cu
 INT64_MAX = (1 << 63) - 1
 
 # launches of each kernel since the counts were last set to 0
 LAUNCHES = {"blend_forward": 0, "expand_intersections": 0, "blend_backward": 0, "reduce_gaussians": 0}
 
 _ARGTYPES = {
-    "blend_forward": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5,
+    "blend_forward": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5,
     "expand_intersections": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3,
-    "blend_backward": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3,
+    "blend_backward": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3,
     "reduce_gaussians": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3,
 }
+# <name>_attributes(C, tw, th, int out[3]) of every kernel library
+_ATTR_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
-def _kernel(name: str):
-    fn = getattr(_build.load(name), name)
+def _kernel(name: str, symbol: Optional[str] = None):
+    fn = getattr(_build.load(name), symbol or name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
+        fn.argtypes = _ATTR_ARGTYPES if symbol else _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> int:
+def kernel_attributes(name: str, C: int = 0, tile: Tuple[int, int] = (16, 16)) -> dict:
+    """Registers per thread, local (spill) bytes per thread and shared bytes
+    per block (static + dynamic) of the instance of kernel `name` that a
+    launch with C channels and `tile` runs (`cudaFuncGetAttributes`). K2
+    and K4 have one instance and ignore C and tile."""
+    out = (ctypes.c_int * 3)()
+    rc = _kernel(name, f"{name}_attributes")(C, tile[0], tile[1], ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"{name}_attributes failed with CUDA error {rc}")
+    return {"regs": out[0], "local_bytes": out[1], "shared_bytes": out[2]}
+
+
+def pack_records(uv, conic, opacity, opacity_bias=None) -> torch.Tensor:
+    """[N, 8] f32 records of K1 and K3, one 32-byte row per Gaussian:
+    ux, uy, conic a, b, c, opacity, bias (0 without one), 0."""
+    N = uv.shape[0]
+    cols = [uv, conic, opacity.reshape(N, 1)]
+    if opacity_bias is None:
+        cols.append(uv.new_zeros((N, 2)))
+    else:
+        cols += [opacity_bias.reshape(N, 1), uv.new_zeros((N, 1))]
+    return torch.cat(cols, dim=1)
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device, contiguous: bool = True) -> int:
     """Validate a kernel argument; returns its device pointer."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -66,9 +95,27 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> int:
         raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     return t.data_ptr()
+
+
+def _checked_records(uv, conic, opacity, opacity_bias, N: int, device) -> torch.Tensor:
+    """Validate the per-Gaussian arguments of K1 / K3 and pack them; the
+    kernels read only the records, so any layout will do. The records are
+    freed when the wrapper returns; the caching allocator reuses them only
+    for work queued after the launch on the same stream.
+
+    A train step packs twice, in K1's wrapper and again in K3's: one
+    [N, 8] copy each (4 MB at 131,000 Gaussians), which keeps the public
+    wrappers taking the separate arrays and holds no records between the
+    forward and the backward."""
+    _check(uv, "uv", torch.float32, (N, 2), device, contiguous=False)
+    _check(conic, "conic", torch.float32, (N, 3), device, contiguous=False)
+    _check(opacity, "opacity", torch.float32, (N,), device, contiguous=False)
+    if opacity_bias is not None:
+        _check(opacity_bias, "opacity_bias", torch.float32, (N,), device, contiguous=False)
+    return pack_records(uv, conic, opacity, opacity_bias)
 
 
 def _launch(name: str, *args) -> None:
@@ -234,14 +281,12 @@ def blend_forward(
         raise ValueError(f"tile {tile}: tw*th must be in 1..1024")
     if C > MAX_CHANNELS:
         raise ValueError(f"{C} channels > {MAX_CHANNELS}, the most blend_forward takes")
+    rec = _checked_records(uv, conic, opacity, opacity_bias, N, dev)
     ptrs = [
         _check(gid, "gid", torch.int32, gid.shape[:1], dev),
         _check(edges, "edges", torch.int32, (tgx * tgy + 1,), dev),
-        _check(uv, "uv", torch.float32, (N, 2), dev),
-        _check(conic, "conic", torch.float32, (N, 3), dev),
-        _check(opacity, "opacity", torch.float32, (N,), dev),
+        rec.data_ptr(),
         _check(features, "features", torch.float32, (N, C), dev),
-        None if opacity_bias is None else _check(opacity_bias, "opacity_bias", torch.float32, (N,), dev),
         _check(bg, "bg", torch.float32, (C,), dev),
     ]
     image = torch.empty((H, W, C), dtype=torch.float32, device=dev)
@@ -249,7 +294,7 @@ def blend_forward(
     ncontrib = torch.empty((H, W), dtype=torch.int32, device=dev)
     gs_idx = torch.empty((H, W, K_idx), dtype=torch.int32, device=dev)
     _launch(
-        "blend_forward", *ptrs, C, W, H, tw, th, K_idx,
+        "blend_forward", *ptrs, int(opacity_bias is not None), C, W, H, tw, th, K_idx,
         image.data_ptr(), final_T.data_ptr(), ncontrib.data_ptr(),
         gs_idx.data_ptr() if K_idx else None,
         torch.cuda.current_stream(dev).cuda_stream,
@@ -407,14 +452,12 @@ def blend_backward(
     if C > MAX_CHANNELS:
         raise ValueError(f"{C} channels > {MAX_CHANNELS}, the most blend_backward takes")
     M = gid.shape[0]
+    rec = _checked_records(uv, conic, opacity, opacity_bias, N, dev)
     ptrs = [
         _check(gid, "gid", torch.int32, (M,), dev),
         _check(edges, "edges", torch.int32, (tgx * tgy + 1,), dev),
-        _check(uv, "uv", torch.float32, (N, 2), dev),
-        _check(conic, "conic", torch.float32, (N, 3), dev),
-        _check(opacity, "opacity", torch.float32, (N,), dev),
+        rec.data_ptr(),
         _check(features, "features", torch.float32, (N, C), dev),
-        None if opacity_bias is None else _check(opacity_bias, "opacity_bias", torch.float32, (N,), dev),
         _check(bg, "bg", torch.float32, (C,), dev),
         _check(mask, "mask", torch.float32, (C,), dev),
         _check(image, "image", torch.float32, (H, W, C), dev),
@@ -425,7 +468,7 @@ def blend_backward(
     dgrad = torch.empty((M, R), dtype=torch.float32, device=dev)
     ncontrib = torch.empty((H, W), dtype=torch.int32, device=dev) if return_ncontrib else None
     _launch(
-        "blend_backward", *ptrs, C, W, H, tw, th, dgrad.data_ptr(),
+        "blend_backward", *ptrs, int(opacity_bias is not None), C, W, H, tw, th, dgrad.data_ptr(),
         None if ncontrib is None else ncontrib.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -577,9 +620,8 @@ def splat_scene(
     bg_t = torch.as_tensor(bg, dtype=torch.float32, device=dev).reshape(-1)
     mask = (1.0,) * C if alpha_grad_mask is None else alpha_grad_mask
     mask_t = torch.as_tensor(mask, dtype=torch.float32, device=dev).reshape(-1)
-    bias = None if opacity_bias is None else opacity_bias.contiguous()
     image, final_T, ncontrib, gs_idx = _Splat.apply(
-        uv.contiguous(), conic.contiguous(), opacity.contiguous(), features.contiguous(),
-        abs_sink, bias, b, bg_t, mask_t, W, H, tuple(block), K_idx,
+        uv, conic, opacity, features.contiguous(),
+        abs_sink, opacity_bias, b, bg_t, mask_t, W, H, tuple(block), K_idx,
     )
     return image, final_T, ncontrib, (gs_idx if K_idx else None), b.num_intersections

@@ -19,8 +19,12 @@ pytestmark = pytest.mark.skipif(
 W, H = 200, 120
 
 
-def projected(seed, n=3000, block=(16, 16)):
+def projected(seed, n=3000, block=(16, 16), C=20, dense=False):
+    """A random scene; `dense` has 8x the Gaussians at opacities of 0.01-0.06,
+    so tiles hold several hundred slots and few pixels saturate."""
     g = torch.Generator().manual_seed(seed)
+    if dense:
+        n = 8 * n
     xyz = torch.cat([torch.rand(n, 2, generator=g) * 1.8 - 0.9,
                      torch.rand(n, 1, generator=g) * 1.5 + 0.5], 1)
     scale = torch.exp(torch.rand(n, 3, generator=g) * 1.5 - 4.0)
@@ -31,8 +35,9 @@ def projected(seed, n=3000, block=(16, 16)):
     vis = depth != 0
     cov = quaternion.build_cov3d(scale, quat, vis)
     conic, radius, tiles, rmin, rmax = projection.ewa_ortho(cov, extr, uv, W, H, vis, block)
-    opacity = (torch.rand(n, generator=g) * 0.9 + 0.05).cuda()
-    feats = torch.rand(n, 20, generator=g).cuda()
+    lo, span = (0.01, 0.05) if dense else (0.05, 0.9)
+    opacity = (torch.rand(n, generator=g) * span + lo).cuda()
+    feats = torch.rand(n, C, generator=g).cuda()
     return uv, depth, conic, tiles, rmin, rmax, opacity, feats
 
 
@@ -51,13 +56,55 @@ def test_expand_intersections_matches_plain(M):
     assert torch.equal(keys, keys_p) and torch.equal(gid, gid_p)
 
 
-@pytest.mark.parametrize("tile,K,bias", [((16, 16), 0, False), ((16, 16), 8, True), ((32, 16), 4, False)])
-def test_blend_forward_matches_plain(tile, K, bias):
-    uv, depth, conic, tiles, rmin, rmax, opacity, feats = projected(1, block=tile)
-    b = binning.bin_intersections(depth, tiles, rmin, rmax, W, H, 1 << 16, block=tile)
+# (tile, C, K_idx, opacity_bias, dense): C at the edges of K3's channel
+# buckets 8 / 16 / 32 (K1's are every multiple of 4), every block size, and
+# tiles with many batches
+BLEND_CASES = [
+    ((16, 16), 20, 0, False, False),
+    ((16, 16), 20, 8, True, False),
+    ((32, 16), 20, 4, False, False),
+    ((16, 16), 1, 0, False, False),
+    ((16, 16), 8, 0, False, False),
+    ((16, 16), 9, 0, True, False),
+    ((16, 16), 16, 0, False, False),
+    ((16, 16), 17, 0, False, False),
+    ((16, 16), 32, 0, False, False),
+    ((32, 16), 32, 0, True, False),
+    ((16, 16), 7, 4, True, True),
+    ((32, 16), 20, 0, False, True),
+]
+FORWARD_CASES = BLEND_CASES + [
+    ((16, 16), 4, 0, False, False),
+    ((16, 16), 5, 4, False, False),
+    ((16, 16), 21, 0, True, False),
+    ((16, 16), 28, 0, False, False),
+    ((32, 32), 20, 0, False, False),
+    ((32, 32), 32, 8, True, False),
+    ((32, 32), 7, 0, False, True),
+]
+
+
+def _case_id(case):
+    (tw, th), C, K, bias, dense = case
+    return f"{tw}x{th}-C{C}-K{K}" + ("-bias" if bias else "") + ("-dense" if dense else "")
+
+
+def _binned(seed, tile, C, dense):
+    uv, depth, conic, tiles, rmin, rmax, opacity, feats = projected(seed, block=tile, C=C, dense=dense)
+    b = binning.bin_intersections(depth, tiles, rmin, rmax, W, H, 1 << 18, block=tile)
+    assert int(b.num_intersections) <= 1 << 18
+    if dense:   # more than two batches of K1 (128 slots) and K3 (32 slots)
+        assert int((b.edges[1:] - b.edges[:-1]).max()) > 2 * 128
+    return b, uv, conic, opacity, feats   # any layout: the wrappers pack them
+
+
+@pytest.mark.parametrize("case", FORWARD_CASES, ids=_case_id)
+def test_blend_forward_matches_plain(case):
+    tile, C, K, bias, dense = case
+    b, uv, conic, opacity, feats = _binned(1, tile, C, dense)
     ob = torch.rand(uv.shape[0], device="cuda") * 0.1 if bias else None
-    bg = torch.linspace(0.0, 1.0, feats.shape[1], device="cuda")
-    args = (b.gid, b.edges, uv.contiguous(), conic.contiguous(), opacity, feats, bg, W, H, tile, K, ob)
+    bg = torch.linspace(0.0, 1.0, C, device="cuda")
+    args = (b.gid, b.edges, uv, conic, opacity, feats, bg, W, H, tile, K, ob)
     before = rasterize_gpu.LAUNCHES["blend_forward"]
     out = rasterize_gpu.blend_forward(*args)
     assert rasterize_gpu.LAUNCHES["blend_forward"] == before + 1
@@ -68,14 +115,11 @@ def test_blend_forward_matches_plain(tile, K, bias):
     assert np.isfinite(out[0].cpu().numpy()).all() and int(out[2].sum()) > 0
 
 
-def _backward_inputs(tile, bias, C=7, seed=2):
-    uv, depth, conic, tiles, rmin, rmax, opacity, feats = projected(seed, block=tile)
-    feats = feats[:, :C].contiguous()
-    b = binning.bin_intersections(depth, tiles, rmin, rmax, W, H, 1 << 16, block=tile)
+def _backward_inputs(tile, bias, C=7, seed=2, dense=False):
+    b, uv, conic, opacity, feats = _binned(seed, tile, C, dense)
     ob = torch.rand(uv.shape[0], device="cuda") * 0.1 if bias else None
     bg = torch.linspace(0.0, 1.0, C, device="cuda")
     mask = (torch.arange(C, device="cuda") < 4).float()   # rgb + depth reach opacity
-    uv, conic = uv.contiguous(), conic.contiguous()
     image, final_T, ncontrib, _ = rasterize_gpu.blend_forward(
         b.gid, b.edges, uv, conic, opacity, feats, bg, W, H, tile, 0, ob)
     grad = torch.randn(H, W, C, generator=torch.Generator().manual_seed(seed)).cuda()
@@ -83,11 +127,14 @@ def _backward_inputs(tile, bias, C=7, seed=2):
     return b, args, ncontrib
 
 
-@pytest.mark.parametrize("tile,bias", [((16, 16), False), ((16, 16), True), ((32, 16), False)])
-def test_blend_backward_matches_plain(tile, bias):
+@pytest.mark.parametrize(
+    "case", [((16, 16), 7, 0, False, False), ((16, 16), 7, 0, True, False), ((32, 16), 7, 0, False, False)]
+    + BLEND_CASES, ids=_case_id)
+def test_blend_backward_matches_plain(case):
     """K3 repeats the plain version's arithmetic and its fixed summation
     tree, and its replay applies exactly K1's Gaussians."""
-    b, args, k1_ncontrib = _backward_inputs(tile, bias)
+    tile, C, _, bias, dense = case
+    b, args, k1_ncontrib = _backward_inputs(tile, bias, C=C, dense=dense)
     before = rasterize_gpu.LAUNCHES["blend_backward"]
     dgrad, ncontrib = rasterize_gpu.blend_backward(*args, return_ncontrib=True)
     assert rasterize_gpu.LAUNCHES["blend_backward"] == before + 1
@@ -97,6 +144,19 @@ def test_blend_backward_matches_plain(tile, bias):
     assert torch.equal(ncontrib, k1_ncontrib) and torch.equal(ref_nc, k1_ncontrib)
     assert torch.isfinite(dgrad[:n]).all()
     assert torch.equal(dgrad[:n], ref[:n])
+    assert float(dgrad[:n].abs().sum()) > 0
+
+
+@pytest.mark.parametrize("name,C,tile", [
+    ("blend_forward", 20, (16, 16)), ("blend_forward", 7, (32, 32)),
+    ("blend_backward", 7, (16, 16)), ("blend_backward", 32, (32, 16)),
+    ("expand_intersections", 0, (16, 16)), ("reduce_gaussians", 0, (16, 16)),
+])
+def test_kernel_attributes(name, C, tile):
+    """Each library reports its instance's registers, spills and shared bytes."""
+    a = rasterize_gpu.kernel_attributes(name, C, tile)
+    assert set(a) == {"regs", "local_bytes", "shared_bytes"}
+    assert 0 < a["regs"] <= 255 and a["local_bytes"] >= 0 and a["shared_bytes"] >= 0
 
 
 def test_reduce_gaussians_matches_plain_and_is_deterministic():

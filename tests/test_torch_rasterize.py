@@ -189,3 +189,24 @@ def test_backward_is_not_silently_plain(monkeypatch):
     assert calls == ["blend_backward_plain", "reduce_gaussians_plain"]
     assert tgpu.LAUNCHES == before
     assert torch.isfinite(feats.grad).all() and float(feats.grad.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
+def test_pack_records_matches_separate_arrays(bias, layout):
+    """The 32-byte records K1 and K3 read hold uv, conic, opacity, the bias
+    (0 without one) and a zero pad, bit for bit, from any input layout."""
+    s = scene(7)
+    T = {k: torch.from_numpy(v) for k, v in s.items()}
+    if layout == "strided":   # the arrays as column views of wider tensors
+        wide = torch.cat([T["uv"], T["conic"], T["opacity"][:, None], T["bias"][:, None]], 1)
+        T["uv"], T["conic"], T["opacity"], T["bias"] = wide[:, 0:2], wide[:, 2:5], wide[:, 5], wide[:, 6]
+        assert not T["uv"].is_contiguous()
+    rec = tgpu.pack_records(T["uv"], T["conic"], T["opacity"], T["bias"] if bias else None)
+    n = s["uv"].shape[0]
+    assert rec.shape == (n, 8) and rec.dtype == torch.float32 and rec.is_contiguous()
+    assert rec.element_size() * rec.shape[1] == 32
+    assert torch.equal(rec[:, 0:2], T["uv"]) and torch.equal(rec[:, 2:5], T["conic"])
+    assert torch.equal(rec[:, 5], T["opacity"])
+    assert torch.equal(rec[:, 6], T["bias"] if bias else torch.zeros(n))
+    assert torch.equal(rec[:, 7], torch.zeros(n))
