@@ -9,20 +9,27 @@ and holds each against its plain PyTorch version at the flagship shapes
 
   render: K1 blend_forward and K2 expand_intersections with the mask /
      pos_poly_feat / dino render attributes (C = 20 blended channels, and
-     widened to C = 32, the largest channel bucket), then a 5-frame video
-     through `inference.render_video`;
+     widened to C = 32, the largest channel bucket), K2 also at a saturated
+     budget (M = 1 << 18, fewer slots than frame 0's intersections), then a
+     5-frame video through `inference.render_video`;
   train: K3 blend_backward and K4 reduce_gaussians at the training blend
      (rgb, depth, track_gs: C = 7, track_gs masked from opacity; also
-     widened to C = 32), the gradients of the 64x48 training render on the
-     card against the CPU, then ten steps of `trainer.make_train_step` with
-     a density step and an opacity reset.
+     widened to C = 32), K4 also on the rows of the saturated budget, the
+     gradients of the 64x48 training render on the card against the CPU,
+     then ten steps of `trainer.make_train_step` with a density step and an
+     opacity reset.
+
+Every kernel check is `torch.equal` against the plain version.
 
 The launch counters are set to 0 just before each of the two main paths
 (the video render, the ten train steps) and read just after. Each phase
 prints one line; any failure ends the run with a non-zero exit and no
 result line. The `[times]` lines and the kernel table carry each kernel's
 registers per thread, local (spill) bytes per thread and shared bytes per
-block at the main path's instance (`rasterize_gpu.kernel_attributes`).
+block at the main path's instance (`rasterize_gpu.kernel_attributes`),
+the port's kernels' own times inside the frame and step profiles, and
+beside K2 and K4 the PyTorch calls that do part of their work (the owners
+alone, a fill of K2's outputs, the gather of K4's rows), as references.
 The line before the last is the kernel table as JSON, the last line
 `{"ok": true, "device": {...}}`. Needs one CUDA device.
 """
@@ -42,6 +49,7 @@ import numpy as np
 W, H = 854, 480
 CAPACITY, ALIVE, FRAMES = 131_000, 100_000, 48
 MAX_INTERSECTIONS = 1 << 20
+SATURATED = 1 << 18     # a budget below the flagship frames' ~486k intersections
 EXTRA = ("mask_attribute", "pos_poly_feat", "dino_attribute")
 TIMES = (0, 1.5, 7, 23, 47)
 ATOL = 2e-5             # the 64x48 render on the card against the CPU and the oracle
@@ -50,7 +58,6 @@ DEVICE = "cuda"
 TRAIN_T1, TRAIN_T2, TRAIN_STEPS, TRACKS = 7, 23, 10, 4096
 TRAIN_MASK = (1.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0)   # rgb 3, depth 1 reach opacity; track_gs 3 not
 WIDE_C = 32             # the largest channel bucket of K1 and K3
-BWD_RTOL = 1e-6         # K4 against plain: max abs diff / largest plain entry
 GRAD_ATOL, GRAD_RTOL = 3e-4, 2e-3   # gradients, the bars of tests/test_rasterize.py
 PLAIN_REPS = 3          # the plain versions read counts back, so each run waits for the card
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
@@ -246,9 +253,14 @@ def wall_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
+PORT_KERNELS = ("blend_forward_kernel", "expand_intersections_kernel", "blend_backward_kernel",
+                "invert_order_kernel", "reduce_gaussians_kernel")
+
+
 def device_profile(fn, reps: int):
-    """(device busy ms per call, [(kernel, ms per call)] top 8) from
-    torch.profiler, or (None, []) when it records no device kernels."""
+    """(device busy ms per call, [(kernel, ms per call)] top 8, the same for
+    every kernel of the port's CUDA sources) from torch.profiler, or
+    (None, [], []) when it records no device kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -263,9 +275,11 @@ def device_profile(fn, reps: int):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
     if not per_name:
-        return None, []
+        return None, [], []
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
-    return sum(per_name.values()), top
+    ours = sorted((name[name.index(k):].split("(")[0], ms) for name, ms in per_name.items()
+                  for k in PORT_KERNELS if k in name)
+    return sum(per_name.values()), top, ours
 
 
 def require(cond: bool, what: str) -> None:
@@ -369,6 +383,17 @@ def main() -> int:
         require(nint <= MAX_INTERSECTIONS, f"frame 0 saturated: {nint} > {MAX_INTERSECTIONS}")
         log("K2", f"expand_intersections == plain: keys, gid, sorted gid, edges equal; "
                   f"{nint} intersections of {MAX_INTERSECTIONS}")
+        k2_sat = k2_args[:5] + (SATURATED, tgx)
+        keys_s, sgid_s = rg.expand_intersections(*k2_sat)
+        keys_sp, sgid_sp = rg.expand_intersections_plain(*k2_sat)
+        torch.cuda.synchronize()
+        require(nint > SATURATED, f"frame 0 does not saturate {SATURATED}: {nint} intersections")
+        require(torch.equal(keys_s, keys_sp) and torch.equal(sgid_s, sgid_sp),
+                "K2 at the saturated budget differs from plain")
+        g_end = int(sgid_s[-1])
+        end_j, end_n = SATURATED - 1 - int(offs[g_end]), int(tiles[g_end])
+        log("K2", f"saturated budget M = {SATURATED} < {nint}: keys, gid equal to plain; the last slot "
+                  f"is slot {end_j} of Gaussian {g_end}'s {end_n}")
 
         # ---- 5. K1 against its plain version --------------------------------
         uv, conic, opac, feats, bg = blend_inputs(pr)
@@ -468,14 +493,23 @@ def main() -> int:
             lambda: rg.blend_forward_plain(b.gid, b.edges, uv, conic, opac, feats, bg, W, H), cpm)
         k2_ms = cuda_ms(lambda: rg.expand_intersections(*k2_args), cpm)
         k2_plain_ms = cuda_ms(lambda: rg.expand_intersections_plain(*k2_args), cpm)
+        # references beside K2, not its yardstick: the owners alone, with no
+        # keys; and a plain fill of its two outputs, the writes alone
+        ar, tiles_l = torch.arange(CAPACITY, device=dev), tiles.long()
+        rep_ms = cuda_ms(lambda: torch.repeat_interleave(ar, tiles_l, output_size=nint), cpm)
+        fill_ms = cuda_ms(lambda: (torch.full((MAX_INTERSECTIONS,), rg.INT64_MAX, device=dev),
+                                   torch.full((MAX_INTERSECTIONS,), -1, dtype=torch.int32, device=dev)), cpm)
         sort_ms = cuda_ms(lambda: torch.sort(keys, stable=True), cpm)
-        busy_ms, top = device_profile(frame, reps=5)
+        busy_ms, top, ours = device_profile(frame, reps=5)
     N = CAPACITY
     applied = int(k1_out[2].sum())
     k1_bytes = 4 * nint + 4 * (tgx * tgy + 1) + N * (8 + 12 + 4 + 4 * C) + 4 * C + H * W * (C + 2) * 4
     k1_ops = 256 * nint * 15 + applied * 2 * C
     k1_by = "operations" if k1_ops / FP32_FLOPS_PER_S > k1_bytes / HBM_BYTES_PER_S else "bytes"
-    k2_bytes = N * (4 + 4 + 8 + 8 + 4) + MAX_INTERSECTIONS * (8 + 4)
+    # K2 must read every Gaussian's tile count, and offs, rect_min,
+    # rect_max.x and depth of those with tiles; it writes every slot once
+    k2_live = int((tiles > 0).sum())
+    k2_bytes = 4 * N + k2_live * (4 + 8 + 4 + 4) + MAX_INTERSECTIONS * (8 + 4)
     k1_bound = max(k1_bytes / HBM_BYTES_PER_S, k1_ops / FP32_FLOPS_PER_S) * 1e3
     k2_bound = k2_bytes / HBM_BYTES_PER_S * 1e3
     log("times", f"render_frame {frame_ms:.3f} ms/frame (wall): projection {project_ms:.3f} ms, "
@@ -486,10 +520,15 @@ def main() -> int:
         log("times", f"device busy {busy_ms:.3f} ms/frame = {busy_ms / frame_ms:.1%} of the wall time "
                      f"(torch.profiler, 5 frames); by kernel ms/frame: "
                      + "; ".join(f"{name[:60]} {ms:.4f}" for name, ms in top) + f" {card}")
+        log("times", "the port's kernels in that profile, ms/frame: "
+                     + "; ".join(f"{name} {ms:.4f}" for name, ms in ours) + f" {card}")
     log("times", f"K1 blend_forward {k1_ms:.4f} ms, plain {k1_plain_ms:.3f} ms, bound {k1_bound:.4f} ms "
                  f"({k1_by}: {k1_ops:.3g} flops, {k1_bytes:.3g} B, {applied} applied pairs) {card}")
     log("times", f"K2 expand_intersections {k2_ms:.4f} ms, plain {k2_plain_ms:.3f} ms, "
-                 f"bound {k2_bound:.4f} ms (bytes: {k2_bytes:.3g} B) {card}")
+                 f"bound {k2_bound:.4f} ms (bytes: {k2_bytes:.3g} B, {k2_live} Gaussians with tiles); "
+                 f"torch.repeat_interleave "
+                 f"of the owners alone {rep_ms:.4f} ms; two torch.full of its outputs {fill_ms:.4f} ms "
+                 f"{card}")
     log("times", f"torch.sort of {MAX_INTERSECTIONS} int64 keys (stable) {sort_ms:.4f} ms {card}")
 
     # ---- 8. training blend: K3 and K4 against their plain versions ---------
@@ -499,17 +538,17 @@ def main() -> int:
     extr = torch.as_tensor(cam.extrinsic, dtype=torch.float32, device=dev)
     mask_t = torch.tensor(TRAIN_MASK, device=dev)
 
-    def train_blend_inputs(tile, bias=None, wide=False):
-        """Binning, K1 outputs (held to K1's plain version) and K3 arguments
-        of the training render of frame TRAIN_T1 at `tile`, with a seeded
-        dL/dimage; `wide` pads the features to WIDE_C channels (the extra
-        ones reach opacity)."""
+    def train_blend_inputs(tile, bias=None, wide=False, M=MAX_INTERSECTIONS):
+        """Binning at budget M, K1 outputs (held to K1's plain version) and
+        K3 arguments of the training render of frame TRAIN_T1 at `tile`,
+        with a seeded dL/dimage; `wide` pads the features to WIDE_C channels
+        (the extra ones reach opacity)."""
         rc = dataclasses.replace(tcfg, block_x=tile[0], block_y=tile[1]).raster_cfg()
         inp = trainer.scene_render_inputs(scene, TRAIN_T1)
         tp = trainer.project_for_training(inp, extr, rc, {"track_gs": scene.get_position(TRAIN_T2)},
                                           True, 0.0, tcfg.depth_bg)
         tb = binning.bin_intersections(tp.depth, tp.tiles, tp.rect_min, tp.rect_max, W, H,
-                                       MAX_INTERSECTIONS, rc.max_tiles_per_gaussian, rc.block)
+                                       M, rc.max_tiles_per_gaussian, rc.block)
         tu, tc, to, tf, tbg = blend_inputs(tp)
         require(tf.shape[1] == len(TRAIN_MASK), f"training blend carries {tf.shape[1]} channels")
         tmask = mask_t
@@ -523,6 +562,7 @@ def main() -> int:
         same = all(torch.equal(a, r) for a, r in zip(fwd, ref))
         log("K1", f"training blend {tile[0]}x{tile[1]} C={tf.shape[1]}"
                   + ("" if bias is None else " opacity_bias")
+                  + ("" if M == MAX_INTERSECTIONS else f" M={M}")
                   + f": torch.equal on all four outputs: {same}")
         require(same, f"K1 at the training blend {tile} C={tf.shape[1]} differs from plain")
         g = torch.randn((H, W, tf.shape[1]), generator=torch.Generator(device=dev).manual_seed(args.seed),
@@ -556,18 +596,27 @@ def main() -> int:
         k3_check("32x16", (32, 16))
         k3_check(f"16x16 C={WIDE_C}", (16, 16), wide=True)
 
+        def k4_check(tag, b4, k3a, rows):
+            red = rg.reduce_gaussians(rows, b4.order, b4.offs, b4.tiles)
+            red_p = rg.reduce_gaussians_plain(rows, b4.order, b4.offs, b4.tiles)
+            runs = [rg.reduce_gaussians(rg.blend_backward(*k3a), b4.order, b4.offs, b4.tiles)
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            same = torch.equal(red, red_p)
+            log("K4", f"{tag}: reduce_gaussians [{red.shape[0]}, {red.shape[1]}] torch.equal to plain: "
+                      f"{same} (max abs diff {(red - red_p).abs().max().item():.3g}); "
+                      f"K3 + K4 run twice more: bit-identical")
+            require(torch.isfinite(red).all().item() and same, f"K4 {tag} differs from plain")
+            require(torch.equal(runs[0], runs[1]) and torch.equal(runs[0], red),
+                    f"K3 + K4 {tag} not deterministic")
+            return red, red_p
+
         k4_args = (dgrad, tb.order, tb.offs, tb.tiles)
-        red = rg.reduce_gaussians(*k4_args)
-        red_p = rg.reduce_gaussians_plain(*k4_args)
-        torch.cuda.synchronize()
-        k4_err = rel_err(red, red_p)
-        require(torch.isfinite(red).all().item() and k4_err <= BWD_RTOL, f"K4 differs from plain: {k4_err}")
-        runs = [rg.reduce_gaussians(rg.blend_backward(*k3_args), tb.order, tb.offs, tb.tiles)
-                for _ in range(2)]
-        torch.cuda.synchronize()
-        require(torch.equal(runs[0], runs[1]) and torch.equal(runs[0], red), "K3 + K4 not deterministic")
-        log("K4", f"reduce_gaussians [{red.shape[0]}, {red.shape[1]}]: max abs diff / max |plain| "
-                  f"{k4_err:.3g} (tol {BWD_RTOL}); K3 + K4 run twice more: bit-identical")
+        red, red_p = k4_check(f"16x16 C={len(TRAIN_MASK)}", tb, k3_args, dgrad)
+        tb_s, _, k3_args_s = train_blend_inputs((16, 16), M=SATURATED)
+        require(int(tb_s.num_intersections) > SATURATED, "the training frame does not saturate")
+        k4_check(f"saturated budget M = {SATURATED} < {int(tb_s.num_intersections)}", tb_s, k3_args_s,
+                 rg.blend_backward(*k3_args_s))
 
     # ---- 9. gradients on the card against the CPU ----------------------------
     small_t = small_train_scene(args.seed)
@@ -623,7 +672,7 @@ def main() -> int:
 
     # ---- 11. training times ----------------------------------------------------
     train_ms = statistics.median(step_ms[1:])
-    t_busy, t_top = device_profile(lambda: train_step(state0, batch), reps=3)
+    t_busy, t_top, t_ours = device_profile(lambda: train_step(state0, batch), reps=3)
     # the step's parts, each timed alone from the same state (wall, with a synchronize)
     leaves = {k: v.detach().requires_grad_(True) for k, v in state0.scene.params.items()}
     sinks = [torch.zeros((CAPACITY, 2), device=dev, requires_grad=True) for _ in range(2)]
@@ -647,12 +696,18 @@ def main() -> int:
         owner = tb.gid[:t_nint].long()
         rows = dgrad[:t_nint]
         k4_lib_ms = cuda_ms(lambda: torch.zeros_like(red).index_add_(0, owner, rows), cpm)
+        # the gather alone: the used rows in pre-sort order, through the
+        # inverse permutation (a reference beside K4, not its yardstick)
+        inv = torch.empty_like(tb.order)
+        inv[tb.order] = torch.arange(inv.shape[0], device=dev)
+        inv_used = inv[:t_nint].contiguous()
+        gather_ms = cuda_ms(lambda: dgrad.index_select(0, inv_used), cpm)
     R = dgrad.shape[1]
     Ct = len(TRAIN_MASK)
     attrs = {"blend_forward": rg.kernel_attributes("blend_forward", C, (16, 16)),
              "expand_intersections": rg.kernel_attributes("expand_intersections"),
              "blend_backward": rg.kernel_attributes("blend_backward", Ct, (16, 16)),
-             "reduce_gaussians": rg.kernel_attributes("reduce_gaussians")}
+             "reduce_gaussians": rg.kernel_attributes("reduce_gaussians", R)}
     k1_train_attrs = rg.kernel_attributes("blend_forward", Ct, (16, 16))
     t_applied = int(tfwd[2].sum())
     k3_bytes = (4 * t_nint + 4 * (tgx * tgy + 1) + N * (8 + 12 + 4 + 4 * Ct) + 8 * Ct
@@ -673,12 +728,15 @@ def main() -> int:
         log("times", f"train step device busy {t_busy:.3f} ms/step = {t_busy / train_ms:.1%} of the wall time "
                      f"(torch.profiler, 3 steps); by kernel ms/step: "
                      + "; ".join(f"{name[:60]} {ms:.4f}" for name, ms in t_top) + f" {card}")
+        log("times", "the port's kernels in that profile, ms/step: "
+                     + "; ".join(f"{name} {ms:.4f}" for name, ms in t_ours) + f" {card}")
     log("times", f"K3 blend_backward {k3_ms:.4f} ms, plain {k3_plain_ms:.3f} ms, bound {k3_bound:.4f} ms "
                  f"({k3_by}: {k3_ops:.3g} flops, {k3_bytes:.3g} B, {t_nint} slots, {t_applied} applied "
                  f"pairs), {train_launches['blend_backward'] / TRAIN_STEPS:g} launch/step; "
                  f"{resources(attrs['blend_backward'])} (C={Ct}, 16x16) {card}")
     log("times", f"K4 reduce_gaussians {k4_ms:.4f} ms, plain {k4_plain_ms:.3f} ms, index_add_ "
-                 f"{k4_lib_ms:.4f} ms, bound {k4_bound:.4f} ms (bytes: {k4_bytes:.3g} B), "
+                 f"{k4_lib_ms:.4f} ms, bound {k4_bound:.4f} ms (bytes: {k4_bytes:.3g} B); "
+                 f"index_select of the rows through the inverse permutation {gather_ms:.4f} ms; "
                  f"{train_launches['reduce_gaussians'] / TRAIN_STEPS:g} launch/step; "
                  f"{resources(attrs['reduce_gaussians'])} {card}")
     log("times", f"K1 blend_forward at the training blend (C={Ct}, 16x16) {k1_train_ms:.4f} ms, "

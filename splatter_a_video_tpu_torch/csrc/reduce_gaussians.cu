@@ -4,84 +4,218 @@
 // Replaces the XLA `reduce_to_gaussians` of
 // `splatter_a_video_tpu/ops/rasterize_tpu.py` (`_build_splat`), which sorts
 // the slots back, gathers them and runs a log2(cap)-pass Hillis-Steele
-// segmented sum because TPU scatters serialise. On the GPU the simpler
-// form is also the deterministic one: invert the slot sort's permutation
-// with one int scatter, then one warp per Gaussian walks its run of at
-// most `max_tiles_per_gaussian` pre-sort slots offs[g] .. offs[g] +
-// tiles[g] - 1 in that order, lane r summing row r. Slots at or past the
-// budget M are skipped; Gaussians without tiles get zeros. No float
-// atomics: the sum order is fixed, and the plain PyTorch version
-// (`rasterize_gpu.reduce_gaussians_plain`) repeats it.
+// segmented sum because TPU scatters serialise. Gaussian g sums the rows of
+// its pre-sort slots offs[g] .. offs[g] + tiles[g] - 1 below the budget M,
+// in that order, each sum one sequential chain from +0.0f: the order of the
+// plain PyTorch version (`rasterize_gpu.reduce_gaussians_plain`), so no
+// sum may be split or reassociated, and no float atomics are used.
 //
-// Bound: bytes (each slot row read once, 4 * R bytes, plus the permutation
-// and the [N, R] output). The row reads are gathers: a warp reads one
-// slot's R contiguous floats at a time.
+// Bound: bytes. Each used slot's row (4 * R bytes) and its int64 sort
+// position are read once, offs / tiles once, the [N, R] output written
+// once; about 42 MB at the training shape. What the card allows is less:
+// the rows are read through the inverse permutation, so each 60-byte row
+// (R = 15) is a random gather that touches two or three 32-byte sectors.
+// The design therefore spends its effort on keeping many such gathers in
+// flight, in two launches on one stream:
+//
+//  1. invert_order_kernel: inv[order[i]] = i for the sorted positions
+//     i < used = min(offs[N-1] + tiles[N-1], M), read on the device (no
+//     host sync). The sentinel keys of K2 sort after every real key, so the
+//     positions i >= used hold the sentinel slots, which no run reads.
+//  2. reduce_gaussians_kernel: a block takes 32 consecutive Gaussians,
+//     whose clamped runs are consecutive pre-sort slots (~120 at the
+//     flagship). It loads their inv entries in one coalesced load, then
+//     gathers their rows element by element across all 256 threads, eight
+//     independent loads a thread in flight, into shared memory; then one
+//     thread per (Gaussian, row) adds that Gaussian's rows in slot order
+//     from shared memory and the block writes the [32, R] sums as one
+//     contiguous store. Runs longer than 256 slots in all are staged in
+//     pieces, the sums kept in shared memory between them. The launch is
+//     programmatic (PDL): blocks read offs / tiles, and blocks without
+//     slots write their zeros, while the inversion still runs; the others
+//     wait for it (griddepcontrol.wait) before they read inv.
+//
+// Precondition, which the plain version does not have: every sorted
+// position i >= used maps to a pre-sort slot >= used, so that inv is set
+// at every slot a run reads. `Binning.order` meets it; for another
+// permutation the result is undefined.
 
+#include <climits>
+#include <cstddef>
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void invert_permutation_kernel(const long long* __restrict__ order, int M,
-                                          int* __restrict__ inv) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < M) inv[order[i]] = i;
+constexpr int NT = 256;
+constexpr int GB = 32;          // Gaussians per block of the summing kernel
+constexpr int CAP = 256;        // slots staged per piece (a block's runs: ~120 at the flagship)
+constexpr int IN_FLIGHT = 8;    // row elements a thread loads before it stores them
+static_assert(GB == 32, "the span of a block's runs is reduced in one warp");
+
+__global__ void __launch_bounds__(NT) invert_order_kernel(const long long* __restrict__ order,
+                                                          const int* __restrict__ offs,
+                                                          const int* __restrict__ tiles,
+                                                          int N, int M, int* __restrict__ inv) {
+  // let the summing grid start its prologue now; it waits for this grid's
+  // completion before it reads inv
+  asm volatile("griddepcontrol.launch_dependents;");
+  const int total = N > 0 ? offs[N - 1] + tiles[N - 1] : 0;
+  const int i = blockIdx.x * NT + threadIdx.x;
+  if (i < total && i < M) inv[order[i]] = i;
 }
 
-__global__ void reduce_gaussians_kernel(const float* __restrict__ dgrad,
-                                        const int* __restrict__ inv,
-                                        const int* __restrict__ offs,
-                                        const int* __restrict__ tiles, int N, int M,
-                                        int R, float* __restrict__ out) {
-  const long long gw = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (gw >= N) return;
-  const int o = offs[gw];
-  const int n = max(0, min(tiles[gw], M - o));
-  for (int r = lane; r < R; r += 32) {
-    float acc = 0.0f;
-    for (int j = 0; j < n; ++j) acc = acc + dgrad[static_cast<long long>(inv[o + j]) * R + r];
-    out[gw * R + r] = acc;
+// Element f of a run of elements in steps of NT: p = f / R, r = f % R,
+// advanced without a division.
+struct Step {
+  int p, r;
+  __device__ void next(int dp, int dr, int R) {
+    p += dp, r += dr;
+    if (r >= R) r -= R, ++p;
   }
+};
+
+// One block sums the rows of GB consecutive Gaussians. Their clamped runs
+// are consecutive pre-sort slots [s_begin, s_end); the block stages them in
+// pieces of up to CAP slots: the piece's inv entries (one coalesced load),
+// then its rows, element by element across the block with IN_FLIGHT loads
+// a thread in flight, into shared memory; then one thread per (Gaussian,
+// row) adds the piece's rows of that Gaussian in slot order onto its sum,
+// which stays in shared memory between pieces.
+__global__ void __launch_bounds__(NT) reduce_gaussians_kernel(const float* __restrict__ dgrad,
+                                                              const int* __restrict__ inv,
+                                                              const int* __restrict__ offs,
+                                                              const int* __restrict__ tiles,
+                                                              int N, int M, int R,
+                                                              float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  float* rows = smem;                                       // [CAP][R]
+  float* acc = rows + CAP * R;                              // [GB][R]
+  __shared__ int slot_inv[CAP], run_o[GB], run_n[GB];
+  const int tid = threadIdx.x;
+  const long long ga = static_cast<long long>(blockIdx.x) * GB;
+  const int count = static_cast<int>(N - ga < GB ? N - ga : GB);
+  int lo = INT_MAX, hi = 0;   // the span of the live runs, in warp 0
+  if (tid < GB) {
+    int o = 0, n = 0;
+    if (tid < count) {
+      o = offs[ga + tid];
+      n = max(0, min(tiles[ga + tid], M - o));
+    }
+    run_o[tid] = o;
+    run_n[tid] = n;
+    if (n > 0) lo = o, hi = o + n;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, d));
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, d));
+    }
+  }
+  __shared__ int span[2];
+  if (tid == 0) span[0] = lo, span[1] = hi;
+  const int pairs = count * R;   // (Gaussian, row) pairs: acc[gl * R + r]
+  for (int q = tid; q < pairs; q += NT) acc[q] = 0.0f;
+  __syncthreads();
+  const int s_begin = span[0], s_end = span[1];
+  const int dp = NT / R, dr = NT - dp * R;
+  const Step first = {tid / R, tid - tid / R * R};
+  // blocks with no slots write their zeros without waiting for the inversion
+  if (s_begin < s_end) asm volatile("griddepcontrol.wait;" ::: "memory");
+  for (int p0 = s_begin; p0 < s_end; p0 += CAP) {
+    const int len = min(CAP, s_end - p0);
+    for (int i = tid; i < len; i += NT) slot_inv[i] = inv[p0 + i];
+    __syncthreads();
+    const int elems = len * R;   // rows[p * R + r] = dgrad[inv[p0 + p]][r]
+    Step e = first;
+    for (int f0 = tid; f0 < elems; f0 += IN_FLIGHT * NT) {
+      float v[IN_FLIGHT];
+#pragma unroll
+      for (int k = 0; k < IN_FLIGHT; ++k) {
+        if (f0 + k * NT < elems) v[k] = dgrad[static_cast<long long>(slot_inv[e.p]) * R + e.r];
+        e.next(dp, dr, R);
+      }
+#pragma unroll
+      for (int k = 0; k < IN_FLIGHT; ++k)
+        if (f0 + k * NT < elems) rows[f0 + k * NT] = v[k];
+    }
+    __syncthreads();
+    Step pr = first;   // (gl, r) of pair q
+    for (int q = tid; q < pairs; q += NT, pr.next(dp, dr, R)) {
+      const int a = max(run_o[pr.p], p0), b = min(run_o[pr.p] + run_n[pr.p], p0 + len);
+      float sum = acc[q];
+      for (int t = a; t < b; ++t) sum = sum + rows[(t - p0) * R + pr.r];
+      acc[q] = sum;
+    }
+    __syncthreads();
+  }
+  for (int q = tid; q < pairs; q += NT) out[ga * R + q] = acc[q];
+}
+
+// Dynamic shared bytes of a summing block for R rows: the staged rows and
+// the sums.
+size_t smem_bytes(int R) { return static_cast<size_t>(CAP + GB) * R * sizeof(float); }
+
+cudaError_t launch_sum(const float* dgrad, const int* inv, const int* offs, const int* tiles,
+                       int N, int M, int R, float* out, cudaStream_t s) {
+  const size_t bytes = smem_bytes(R);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(reduce_gaussians_kernel,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((static_cast<long long>(N) + GB - 1) / GB));
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, reduce_gaussians_kernel, dgrad, inv, offs, tiles, N, M, R, out);
 }
 
 }  // namespace
 
 // dgrad: [M, R] f32 per-slot rows in sorted order; order: [M] int64, the
-// stable sort's permutation (sorted position -> pre-sort slot); offs,
-// tiles: [N] int32 (exclusive prefix and clamped counts); inv: [M] int32
-// scratch. Writes out [N, R] f32. Two launches on `stream`. Returns
-// cudaGetLastError().
+// stable sort's permutation (sorted position -> pre-sort slot) of K2's keys;
+// offs, tiles: [N] int32 (exclusive prefix and clamped counts, tiles >= 0);
+// inv: [M] int32 scratch. Writes out [N, R] f32. Two launches on `stream`.
+// Returns the CUDA error code.
 extern "C" int reduce_gaussians(const void* dgrad, const void* order, const void* offs,
                                 const void* tiles, int N, int M, int R, void* inv,
                                 void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* o = static_cast<const int*>(offs);
+  const int* t = static_cast<const int*>(tiles);
+  if (N == 0 || R == 0) return 0;
   if (M > 0) {
-    invert_permutation_kernel<<<(M + 255) / 256, 256, 0, s>>>(
-        static_cast<const long long*>(order), M, static_cast<int*>(inv));
+    const unsigned blocks = static_cast<unsigned>((static_cast<long long>(M) + NT - 1) / NT);
+    invert_order_kernel<<<blocks, NT, 0, s>>>(static_cast<const long long*>(order), o, t, N, M,
+                                              static_cast<int*>(inv));
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
   }
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  if (N > 0) {
-    const long long threads = 32LL * N;
-    reduce_gaussians_kernel<<<static_cast<unsigned>((threads + 255) / 256), 256, 0, s>>>(
-        static_cast<const float*>(dgrad), static_cast<const int*>(inv),
-        static_cast<const int*>(offs), static_cast<const int*>(tiles), N, M, R,
-        static_cast<float*>(out));
-  }
+  const float* d = static_cast<const float*>(dgrad);
+  float* r = static_cast<float*>(out);
+  const cudaError_t err = launch_sum(d, static_cast<const int*>(inv), o, t, N, M, R, r, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Registers per thread, local (spill) bytes per thread and shared bytes per
-// block of the summing kernel (the permutation inverse is one store per
-// thread): out[0..2]. The arguments are those of the other kernels'
-// attribute functions and are not used. Returns the CUDA error code.
+// block (static + dynamic) of the summing kernel for R = C rows (the
+// inversion is one load and one store per slot): out[0..2]. tw and th are
+// those of the other kernels' attribute functions and are not used.
+// Returns the CUDA error code.
 extern "C" int reduce_gaussians_attributes(int C, int tw, int th, int* out) {
-  (void)C, (void)tw, (void)th;
+  (void)tw, (void)th;
   cudaFuncAttributes a;
   const int err = static_cast<int>(cudaFuncGetAttributes(&a, reduce_gaussians_kernel));
   if (err != 0) return err;
   out[0] = a.numRegs;
   out[1] = static_cast<int>(a.localSizeBytes);
-  out[2] = static_cast<int>(a.sharedSizeBytes);
+  out[2] = static_cast<int>(a.sharedSizeBytes + smem_bytes(C));
   return 0;
 }

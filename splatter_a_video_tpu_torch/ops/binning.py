@@ -44,7 +44,9 @@ class Binning(NamedTuple):
     edges: torch.Tensor              # [T + 1] int32 per-tile [start, end) into gid
     offs: torch.Tensor               # [N] int32 exclusive prefix of tiles
     tiles: torch.Tensor              # [N] int32 clamped per-Gaussian tile counts
-    order: torch.Tensor              # [M] int64 sorted position -> pre-sort slot
+    # [M] int64 sorted position -> pre-sort slot; the sentinel slots (past
+    # the used ones) sort last, which `reduce_gaussians` relies on
+    order: torch.Tensor
     num_intersections: torch.Tensor  # [] int32 true count (may exceed M: saturation)
     num_tiles_x: int
     num_tiles_y: int

@@ -67,7 +67,8 @@ def kernel_attributes(name: str, C: int = 0, tile: Tuple[int, int] = (16, 16)) -
     """Registers per thread, local (spill) bytes per thread and shared bytes
     per block (static + dynamic) of the instance of kernel `name` that a
     launch with C channels and `tile` runs (`cudaFuncGetAttributes`). K2
-    and K4 have one instance and ignore C and tile."""
+    has one instance and ignores C and tile; K4 reads C as its row count R
+    and ignores tile."""
     out = (ctypes.c_int * 3)()
     rc = _kernel(name, f"{name}_attributes")(C, tile[0], tile[1], ctypes.addressof(out))
     if rc != 0:
@@ -503,6 +504,12 @@ def reduce_gaussians(dgrad, order, offs, tiles):
     sort's permutation (sorted position -> pre-sort slot); offs, tiles [N]
     int32 from binning. Gaussian g sums the rows of its pre-sort slots
     offs[g] .. offs[g] + tiles[g] - 1 below M, in that order. Returns [N, R].
+    The kernel inverts `order` only at the sorted positions below
+    used = min(offs[-1] + tiles[-1], M), so on the card `order` must map
+    every sorted position >= used to a pre-sort slot >= used (the plain
+    version has no such precondition). `Binning.order` does: K2's sentinel
+    keys sort after every real key. For another permutation the result is
+    undefined.
     """
     if dgrad.device.type == "cpu":
         return reduce_gaussians_plain(dgrad, order, offs, tiles)

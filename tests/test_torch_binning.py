@@ -14,6 +14,7 @@ from splatter_a_video_tpu.ops import projection as jproj
 from splatter_a_video_tpu.ops import quaternion as jquat
 from splatter_a_video_tpu_torch.ops import binning as tbin
 from splatter_a_video_tpu_torch.ops import rasterize_gpu as tgpu
+from test_torch_kernels import EDGE_CASES, EDGE_H, EDGE_W, edge_footprints
 
 W, H = 64, 48
 
@@ -67,7 +68,8 @@ def test_counts_membership_and_depth_order(block):
 
 @pytest.mark.parametrize(
     "seed,cap,M",
-    [(1, 64, 1 << 14), (2, 4, 1 << 14), (3, 64, 200)],   # plain; clamped rects; saturated budget
+    # plain; clamped rects; saturated budgets, even and odd
+    [(1, 64, 1 << 14), (2, 4, 1 << 14), (3, 64, 200), (4, 64, 201)],
 )
 def test_matches_jax_exact(seed, cap, M):
     s = projected(seed)
@@ -79,8 +81,39 @@ def test_matches_jax_exact(seed, cap, M):
     )
     b = port_binning(s, M, cap=cap)
     assert int(b.num_intersections) == int(j.num_intersections)
-    if M == 200:
+    if M in (200, 201):
         assert int(b.num_intersections) > M            # the saturated case really saturates
+    np.testing.assert_array_equal(b.edges.numpy(), np.asarray(j.edges))
+    np.testing.assert_array_equal(b.gid.numpy(), np.asarray(j.gid)[:M])
+    np.testing.assert_array_equal(b.offs.numpy(), np.asarray(j.offs))
+    np.testing.assert_array_equal(b.tiles.numpy(), np.asarray(j.tiles))
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_edge_cases_match_jax_exact(case):
+    """The expansion's edge cases (`test_torch_kernels.edge_footprints`):
+    a run of 5,000 Gaussians without tiles, rects at the 64-tile cap, a
+    budget that ends inside a run, N = 5. Culled Gaussians are interspersed,
+    so these go through `bin_sort_pack`, not the Pallas expansion."""
+    depth, tiles, rmin, rmax, M = edge_footprints(case)
+    clamped = np.minimum(tiles, 64)
+    offs = np.cumsum(clamped) - clamped
+    if case in ("zero_run", "mid_run"):
+        assert (tiles[1500:6500] == 0).all() and 0 < offs[1500] < M
+    if case == "cap":
+        assert ((tiles > 64).sum() > 50) and ((tiles == 64).sum() > 50)
+    if case == "mid_run":
+        assert ((offs < M) & (M < offs + clamped)).sum() == 1
+    j = jbin.bin_sort_pack(
+        jnp.asarray(depth), jnp.asarray(tiles), jnp.asarray(rmin), jnp.asarray(rmax),
+        jnp.asarray(depth)[:, None], EDGE_W, EDGE_H, max_intersections=M,
+        max_tiles_per_gaussian=64, sort_mode="exact",
+    )
+    b = tbin.bin_intersections(
+        torch.from_numpy(depth), torch.from_numpy(tiles), torch.from_numpy(rmin),
+        torch.from_numpy(rmax), EDGE_W, EDGE_H, max_intersections=M, max_tiles_per_gaussian=64,
+    )
+    assert int(b.num_intersections) == int(j.num_intersections) == int(clamped.sum())
     np.testing.assert_array_equal(b.edges.numpy(), np.asarray(j.edges))
     np.testing.assert_array_equal(b.gid.numpy(), np.asarray(j.gid)[:M])
     np.testing.assert_array_equal(b.offs.numpy(), np.asarray(j.offs))

@@ -17,6 +17,50 @@ pytestmark = pytest.mark.skipif(
 )
 
 W, H = 200, 120
+EDGE_W, EDGE_H = 256, 192   # a 16x12 tile grid: room for rects of 64 tiles and more
+EDGE_CASES = ("zero_run", "cap", "mid_run", "tiny")
+
+
+def edge_footprints(case):
+    """Synthetic tile footprints (numpy) for the expansion's edge cases, on
+    the EDGE_W x EDGE_H frame with a 64-tile cap; depths repeat, so equal
+    keys are ordered by Gaussian index. Returns (depth, tiles, rect_min,
+    rect_max, M).
+
+      zero_run: 5,000 Gaussians without tiles in a row, among live and
+        culled ones: more Gaussians than one block of K2 has slots;
+      cap: rects of 64, 81 and 96 tiles, cut to their first 64 in
+        row-major order;
+      mid_run: the zero run, and a budget M that ends inside a run;
+      tiny: N = 5, fewer Gaussians than one block has threads.
+    """
+    rng = np.random.RandomState(EDGE_CASES.index(case))
+    n = {"zero_run": 8000, "cap": 600, "mid_run": 8000, "tiny": 5}[case]
+    tgx, tgy = projection.tile_grid(EDGE_W, EDGE_H)
+    rw, rh = rng.randint(1, 5, n), rng.randint(1, 5, n)
+    if case == "cap":
+        big = rng.randint(0, 4, n)   # 0: small, 1: 8x8, 2: 9x9, 3: 12x8
+        rw = np.choose(big, [rw, 8, 9, 12])
+        rh = np.choose(big, [rh, 8, 9, 8])
+    rmx = rng.randint(0, tgx - rw + 1)
+    rmy = rng.randint(0, tgy - rh + 1)
+    depth = (rng.randint(1, 40, n) / 8).astype(np.float32)
+    dead = rng.rand(n) < 0.25
+    if case in ("zero_run", "mid_run"):
+        dead[1500:6500] = True
+    if case == "tiny":
+        dead[:] = [False, True, False, False, True]
+    depth[dead] = 0.0
+    tiles = np.where(dead, 0, rw * rh).astype(np.int32)
+    rect_min = np.stack([rmx, rmy], 1).astype(np.int32)
+    rect_max = np.stack([rmx + rw, rmy + rh], 1).astype(np.int32)
+    clamped = np.minimum(tiles, 64)
+    M = 1 << 15
+    if case == "mid_run":   # inside the run of the first Gaussian of >= 4 tiles after the zero run
+        g = 6500 + int(np.argmax(clamped[6500:] >= 4))
+        M = int(clamped[:g].sum()) + 2
+    assert M != int(clamped.sum())
+    return depth, tiles, rect_min, rect_max, M
 
 
 def projected(seed, n=3000, block=(16, 16), C=20, dense=False):
@@ -41,7 +85,8 @@ def projected(seed, n=3000, block=(16, 16), C=20, dense=False):
     return uv, depth, conic, tiles, rmin, rmax, opacity, feats
 
 
-@pytest.mark.parametrize("M", [1 << 16, 1000])   # roomy and saturated budgets
+# roomy and saturated budgets, even and odd (an odd M ends in a lone slot)
+@pytest.mark.parametrize("M", [1 << 16, (1 << 16) + 1, 1000, 1001])
 def test_expand_intersections_matches_plain(M):
     uv, depth, conic, tiles, rmin, rmax, *_ = projected(0)
     tiles = tiles.clamp_max(64)
@@ -51,6 +96,21 @@ def test_expand_intersections_matches_plain(M):
     before = rasterize_gpu.LAUNCHES["expand_intersections"]
     keys, gid = rasterize_gpu.expand_intersections(*args)
     assert rasterize_gpu.LAUNCHES["expand_intersections"] == before + 1
+    keys_p, gid_p = rasterize_gpu.expand_intersections_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(keys, keys_p) and torch.equal(gid, gid_p)
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_expand_intersections_edge_cases(case):
+    """The inputs of `test_torch_binning.test_edge_cases_match_jax_exact`."""
+    *arrays, M = edge_footprints(case)
+    depth, tiles, rmin, rmax = (torch.from_numpy(a).cuda() for a in arrays)
+    tiles = tiles.clamp_max(64)
+    offs = torch.cumsum(tiles, 0, dtype=torch.int32) - tiles
+    tgx, _ = projection.tile_grid(EDGE_W, EDGE_H)
+    args = (offs, tiles, rmin, rmax, depth, M, tgx)
+    keys, gid = rasterize_gpu.expand_intersections(*args)
     keys_p, gid_p = rasterize_gpu.expand_intersections_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(keys, keys_p) and torch.equal(gid, gid_p)
@@ -89,10 +149,13 @@ def _case_id(case):
     return f"{tw}x{th}-C{C}-K{K}" + ("-bias" if bias else "") + ("-dense" if dense else "")
 
 
-def _binned(seed, tile, C, dense):
+def _binned(seed, tile, C, dense, saturate=False):
     uv, depth, conic, tiles, rmin, rmax, opacity, feats = projected(seed, block=tile, C=C, dense=dense)
-    b = binning.bin_intersections(depth, tiles, rmin, rmax, W, H, 1 << 18, block=tile)
-    assert int(b.num_intersections) <= 1 << 18
+    M = 1 << 18
+    if saturate:   # a budget that ends inside the expansion
+        M = int(tiles.clamp_max(64).sum()) * 2 // 3
+    b = binning.bin_intersections(depth, tiles, rmin, rmax, W, H, M, block=tile)
+    assert (int(b.num_intersections) > M) == saturate
     if dense:   # more than two batches of K1 (128 slots) and K3 (32 slots)
         assert int((b.edges[1:] - b.edges[:-1]).max()) > 2 * 128
     return b, uv, conic, opacity, feats   # any layout: the wrappers pack them
@@ -115,8 +178,8 @@ def test_blend_forward_matches_plain(case):
     assert np.isfinite(out[0].cpu().numpy()).all() and int(out[2].sum()) > 0
 
 
-def _backward_inputs(tile, bias, C=7, seed=2, dense=False):
-    b, uv, conic, opacity, feats = _binned(seed, tile, C, dense)
+def _backward_inputs(tile, bias, C=7, seed=2, dense=False, saturate=False):
+    b, uv, conic, opacity, feats = _binned(seed, tile, C, dense, saturate)
     ob = torch.rand(uv.shape[0], device="cuda") * 0.1 if bias else None
     bg = torch.linspace(0.0, 1.0, C, device="cuda")
     mask = (torch.arange(C, device="cuda") < 4).float()   # rgb + depth reach opacity
@@ -151,6 +214,7 @@ def test_blend_backward_matches_plain(case):
     ("blend_forward", 20, (16, 16)), ("blend_forward", 7, (32, 32)),
     ("blend_backward", 7, (16, 16)), ("blend_backward", 32, (32, 16)),
     ("expand_intersections", 0, (16, 16)), ("reduce_gaussians", 0, (16, 16)),
+    ("reduce_gaussians", 41, (16, 16)),
 ])
 def test_kernel_attributes(name, C, tile):
     """Each library reports its instance's registers, spills and shared bytes."""
@@ -170,4 +234,19 @@ def test_reduce_gaussians_matches_plain_and_is_deterministic():
     torch.cuda.synchronize()
     assert torch.equal(red, ref)
     assert torch.equal(red, again)   # no atomics: bit-identical from run to run
+    assert float(red.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("C,bias,saturate", [(7, False, True), (32, True, False), (32, True, True)])
+def test_reduce_gaussians_wide_rows_and_saturated_budget(C, bias, saturate):
+    """R = 8 + 32 + 1 = 41 rows (more than one 32-lane group's pass) and a
+    budget that ends inside the expansion, twice for determinism."""
+    b, args, _ = _backward_inputs((16, 16), bias, C=C, saturate=saturate)
+    dgrad = rasterize_gpu.blend_backward(*args)
+    assert dgrad.shape[1] == 8 + C + bias
+    red = rasterize_gpu.reduce_gaussians(dgrad, b.order, b.offs, b.tiles)
+    ref = rasterize_gpu.reduce_gaussians_plain(dgrad, b.order, b.offs, b.tiles)
+    again = rasterize_gpu.reduce_gaussians(rasterize_gpu.blend_backward(*args), b.order, b.offs, b.tiles)
+    torch.cuda.synchronize()
+    assert torch.equal(red, ref) and torch.equal(red, again)
     assert float(red.abs().sum()) > 0
