@@ -17,12 +17,24 @@ and holds each against its plain PyTorch version at the flagship shapes
      widened to C = 32), K4 also on the rows of the saturated budget, the
      gradients of the 64x48 training render on the card against the CPU,
      then ten steps of `trainer.make_train_step` with a density step and an
-     opacity reset.
+     opacity reset;
+  fit (phases 12-14): 300 steps of `fit.fit_clip` at full width on the
+     textured clip of `scripts/e2e_480p.py` (100,000 Gaussians in 131,072
+     slots; cut: 300 steps, the density schedule moved forward so events
+     fire at steps 200 and 300, track grid 4), its setup, steady ms/step,
+     device busy share, the host time of its random draws and a checkpoint
+     round trip; the mini-fit of `tests/test_quality_gate.py` on the card
+     against its pinned bands (PSNR and alive held; AJ and OA printed
+     beside theirs), and without random draws held to the JAX package's
+     fit and to all four bands (see `mini_fit_phase`); the training CLI
+     (`apps.train --synthetic`: train, checkpoint, `--resume`, reload and
+     render).
 
 Every kernel check is `torch.equal` against the plain version.
 
-The launch counters are set to 0 just before each of the two main paths
-(the video render, the ten train steps) and read just after. Each phase
+The launch counters are set to 0 just before each of the three main paths
+(the video render, the ten train steps, the fit) and read just after; the
+kernel table's `launches` are the fit's, one per kernel and step. Each phase
 prints one line; any failure ends the run with a non-zero exit and no
 result line. The `[times]` lines and the kernel table carry each kernel's
 registers per thread, local (spill) bytes per thread and shared bytes per
@@ -62,6 +74,12 @@ GRAD_ATOL, GRAD_RTOL = 3e-4, 2e-3   # gradients, the bars of tests/test_rasteriz
 PLAIN_REPS = 3          # the plain versions read counts back, so each run waits for the card
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12    # H100 SXM data sheet, CUDA cores
+# the full-width fit: scripts/e2e_480p.py:54-120 with the textured clip, cut
+FIT_STEPS = 300
+FIT_CLIP = dict(width=W, height=H, num_frames=FRAMES, num_blobs=6, blob_radius=42.0, track_grid=4, texture=True)
+FIT_DENSITY = dict(densify_start_iter=100, duplicate_interval=100, prune_interval=100, opacity_reset_interval=200)
+FIT_CUTS = ("300 of 20,000 steps; density schedule moved forward (start 100, interval 100, opacity reset 200: "
+            "events at 200 and 300, reset at 201); track_grid 4, not 2")
 
 
 def log(phase: str, msg: str) -> None:
@@ -300,6 +318,246 @@ def widen(feats, bg, seed: int):
 
 def resources(a: dict) -> str:
     return f"{a['regs']} regs, {a['local_bytes']} B local, {a['shared_bytes']} B shared"
+
+
+def fit_phase(args, dev, card: str) -> dict:
+    """Phase 12: `fit.fit_clip` at full width for FIT_STEPS steps; returns
+    the launch counts of the fit."""
+    import pathlib
+    import tempfile
+
+    import torch
+
+    from splatter_a_video_tpu_torch.data import pairs, synthetic
+    from splatter_a_video_tpu_torch.models import camera
+    from splatter_a_video_tpu_torch.ops import rasterize_gpu as rg
+    from splatter_a_video_tpu_torch.train import density, fit, hooks, optim, trainer
+    from splatter_a_video_tpu_torch.utils import checkpoint
+
+    t0 = time.perf_counter()
+    clip = synthetic.make_clip(synthetic.SyntheticClipConfig(seed=args.seed, **FIT_CLIP))
+    clip_s = time.perf_counter() - t0
+    # scripts/e2e_480p.py:54-120: textured clip, flow weight 2, near plane 0.2
+    fcfg = fit.FitConfig(num_iters=FIT_STEPS, num_fg_samples=60_000, num_bg_samples=40_000,
+                         num_track_samples=TRACKS, log_every=max(FIT_STEPS // 40, 1), capacity_factor=1.31,
+                         init_num_points=ALIVE, seed=args.seed)
+    tcfg = trainer.TrainerConfig(
+        width=W, height=H, num_frames=FRAMES, nearest=0.2, loss_flow_weight=2.0, num_track_samples=TRACKS,
+        max_intersections=MAX_INTERSECTIONS, optim=optim.OptimConfig(max_steps=FIT_STEPS),
+        densify=density.DensifyConfig(densify_stop_iter=100_000, densify_grad_threshold=0.0002,
+                                      size_prune_always=True, **FIT_DENSITY))
+    events = [s for s in range(1, FIT_STEPS + 1) if trainer.should_densify(tcfg, s)]
+    capacity = int(np.ceil(ALIVE * fcfg.capacity_factor / 128) * 128)
+
+    class Watch(hooks.Hook):
+        """The alive count at the start and after each density event (the
+        hook's cadence puts an after_train_iter site on every event step)."""
+
+        every = FIT_DENSITY["duplicate_interval"]
+
+        def before_train(self, ctx):
+            self.alive, self.capacity = int(ctx.state.scene.num_alive), ctx.state.scene.cfg.capacity
+            self.at = {}
+
+        def after_train_iter(self, ctx):
+            self.at[ctx.step] = ctx.metrics["alive"]
+
+    watch = Watch()
+    for k in rg.LAUNCHES:
+        rg.LAUNCHES[k] = 0
+    state, hist = fit.fit_clip(clip, fcfg, tcfg, hooks=[watch], device=DEVICE)
+    fit_launches = dict(rg.LAUNCHES)
+    log("fit", f"{W}x{H}, {FRAMES} frames, textured clip of {FIT_CLIP['num_blobs']} blobs of radius "
+               f"{FIT_CLIP['blob_radius']}; cuts: {FIT_CUTS}; {FIT_STEPS} steps, launches {fit_launches}")
+    require(watch.alive == ALIVE and watch.capacity == capacity,
+            f"init alive {watch.alive} of {watch.capacity}, expected {ALIVE} of {capacity}")
+    require(fit_launches == {k: FIT_STEPS for k in fit_launches}, f"fit launch counts {fit_launches}")
+    for m in hist:
+        vals = [v for k, v in m.items() if isinstance(v, (int, float))]
+        require(all(np.isfinite(v) for v in vals), f"step {m['step']}: metrics not finite {m}")
+        require(m["num_intersections"] <= MAX_INTERSECTIONS, f"step {m['step']} saturated: {m['num_intersections']}")
+    first, last = hist[0], hist[-1]
+    require(last["loss_rgb"] < first["loss_rgb"], f"fit loss_rgb did not fall: {first['loss_rgb']} -> {last['loss_rgb']}")
+    done = last.get("densify_events", [])
+    require(len(events) == 2 and [e["step"] for e in done] == events,
+            f"density events at {[e['step'] for e in done]}, expected two at {events}")
+    for e in done:
+        require(watch.at.get(e["step"]) == e["num_alive"],
+                f"density at {e['step']}: alive {watch.at.get(e['step'])} != num_alive {e['num_alive']}")
+    require(state.step == FIT_STEPS and state.opt_state.count == FIT_STEPS, "fit step counts")
+    timing = last["timing"]
+    log("fit", f"init alive {watch.alive} of {watch.capacity}; steps {first['step']} -> {last['step']}: loss "
+               f"{first['loss']:.5f} -> {last['loss']:.5f}, loss_rgb {first['loss_rgb']:.5f} -> "
+               f"{last['loss_rgb']:.5f}, psnr {first['psnr']:.3f} -> {last['psnr']:.3f}; {len(hist)} logged steps "
+               f"finite and unsaturated (max {max(int(m['num_intersections']) for m in hist)} intersections); "
+               "density events: " + "; ".join(
+                   f"step {e['step']}: cloned {e['num_cloned']}, split {e['num_split']}, pruned {e['num_pruned']}, "
+                   f"dropped {e['dropped']}, alive {watch.at[e['step']]} == num_alive" for e in done)
+               + f"; final alive {last['alive']}")
+    log("fit", f"setup {timing['setup_s']} s = clip generation {clip_s:.2f} s (before fit_clip) + lifting "
+               f"{timing['lift_s']} s + create_scene {timing['create_scene_s']} s + frame upload and step set-up "
+               f"{timing['setup_s'] - timing['lift_s'] - timing['create_scene_s']:.2f} s; first step "
+               f"{timing['first_step_s']} s; steady {timing['steady_ms']} ms/step (wall, hooks and logging "
+               f"included); total {timing['total_s']} s {card}")
+
+    # three steps of the fitted state, alone: device busy share
+    frames = trainer.FrameStore(
+        rgb=torch.from_numpy(np.stack(clip.frames)).to(dev),
+        depth=torch.from_numpy(np.stack([clip.get_loss_depth(t) for t in range(FRAMES)])).to(dev))
+    train_step = trainer.make_train_step(tcfg, camera.canonical_camera(W, H).extrinsic, frames=frames,
+                                         device=DEVICE)[0]
+    batch = pairs.batch_to_device(pairs.BatchBuilder(clip, TRACKS, seed=args.seed, slim=True).build(TRAIN_T1, TRAIN_T2),
+                                  dev)
+    step_wall = wall_ms(lambda: train_step(state, batch), reps=3)
+    busy, top, ours = device_profile(lambda: train_step(state, batch), reps=3)
+    if busy is None:
+        log("fit", f"profiler recorded no device kernels; fit busy share not measured {card}")
+    else:
+        log("fit", f"fitted state, 3 steps alone: {step_wall:.3f} ms/step wall, device busy {busy:.3f} ms/step = "
+                   f"{busy / step_wall:.1%} of that wall and {busy / timing['steady_ms']:.1%} of the fit's steady "
+                   "ms/step; by kernel ms/step: " + "; ".join(f"{n[:60]} {ms:.4f}" for n, ms in top)
+                   + "; the port's kernels: " + "; ".join(f"{n} {ms:.4f}" for n, ms in ours) + f" {card}")
+
+    # the host's cost of a step's random draws: the key split and the ARAP
+    # sample (JAX's threefry in numpy, the cumulative sum on the card)
+    from splatter_a_video_tpu_torch.train import losses, prng
+
+    def draws():
+        key, sub = prng.split(state.key)
+        return losses.arap_sample(capacity, tcfg.arap_sample_num, state.scene.alive, sub, dev)
+
+    draws()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(REPS):
+        draws()
+    draws_ms = (time.perf_counter() - t0) / REPS * 1e3
+    torch.cuda.synchronize()
+    log("fit", f"random draws of a step (key split, {tcfg.arap_sample_num} ARAP samples of {capacity} slots): "
+               f"{draws_ms:.3f} ms of host time per step, mean of {REPS}, = {draws_ms / timing['steady_ms']:.1%} of "
+               f"the fit's steady ms/step {card}")
+
+    # checkpoint round trip at full width
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(tmp, state, state.step)
+        save_s = time.perf_counter() - t0
+        back, step = checkpoint.restore_checkpoint(tmp, state)
+        load_s = time.perf_counter() - t0 - save_s
+        size = sum(f.stat().st_size for f in pathlib.Path(tmp).rglob("*") if f.is_file())
+    same = (all(torch.equal(back.scene.params[k], v) and torch.equal(back.opt_state.mu[k], state.opt_state.mu[k])
+                and torch.equal(back.opt_state.nu[k], state.opt_state.nu[k]) for k, v in state.scene.params.items())
+            and all(torch.equal(back.scene.aux[k], v) for k, v in state.scene.aux.items())
+            and all(torch.equal(a, b) for a, b in zip(back.densify_state, state.densify_state))
+            and torch.equal(back.key, state.key))
+    require(same and step == FIT_STEPS and back.step == FIT_STEPS and back.opt_state.count == FIT_STEPS,
+            "full-width checkpoint round trip differs")
+    log("fit", f"checkpoint at step {step}: {size / 2**20:.1f} MiB, saved in {save_s:.2f} s, restored in "
+               f"{load_s:.2f} s; every tensor torch.equal, step and Adam count {back.opt_state.count}")
+    return fit_launches
+
+
+def mini_fit_phase(card: str) -> None:
+    """Phase 13: `tests/test_quality_gate.py`'s mini-fit through the port
+    on the card (`eval.quality_gate`), twice.
+
+    The pinned configuration: a PSNR or alive miss fails the run; AJ and OA
+    are printed beside their bands, and a miss is printed, not failed. At
+    500 steps they follow the random draws (ARAP samples, split noise) and
+    the rounding: the JAX package's own fit misses them with 3 of its 4
+    PRNG keys (`tests/test_torch_quality_gate.py`, `PERF.md` §5). The
+    tracking of the card's fitted scene is also evaluated on the CPU and
+    must agree with the card's.
+
+    The same fit without random draws (ARAP off, zero split noise): every
+    value must lie within `quality_gate.NO_DRAWS_TOL` of the JAX package's
+    fit (`NO_DRAWS_JAX`) and inside all four pinned bands; a miss fails."""
+    from splatter_a_video_tpu_torch.data import synthetic
+    from splatter_a_video_tpu_torch.eval import quality_gate as qg
+    from splatter_a_video_tpu_torch.eval import tapvid
+    from splatter_a_video_tpu_torch.models import camera
+    from splatter_a_video_tpu_torch.ops import rasterize
+
+    clip = synthetic.make_clip(qg.configs()[0])
+    fmt = lambda b: "; ".join(
+        f"{k} {v:.4f} (band > {lo:.4f}" + ("" if hi is None else f" and < {hi:.4f}, != 3000")
+        + f": {'inside' if inside else 'OUTSIDE'})" for k, (v, lo, hi, inside) in b.items())
+    head = f"{qg.W}x{qg.H}, {qg.T} frames, textured, {qg.STEPS} steps"
+
+    r = qg.run(DEVICE, clip=clip)
+    b = qg.bands(r["values"])
+    cam = camera.canonical_camera(qg.W, qg.H)
+    rcfg = rasterize.RasterizeConfig(width=qg.W, height=qg.H, max_intersections=qg.MAX_INTERSECTIONS)
+    on_cpu = tapvid.evaluate_scene_tracking(r["scene"].to("cpu"), clip, cam, rcfg, num_queries=128, device="cpu")
+    log("fit", f"mini-fit ({head}, {r['fit_s']:.1f} s, steady {r['last']['timing']['steady_ms']} ms/step): "
+               f"{fmt(b)}; delta_avg {r['delta_avg']:.4f}; densify {r['last'].get('densify_totals')}; the same "
+               f"scene tracked on the CPU: aj {on_cpu['average_jaccard']:.4f}, oa "
+               f"{on_cpu['occlusion_accuracy']:.4f} {card}")
+    for k in ("psnr", "alive"):
+        require(b[k][3], f"mini-fit {k} {b[k][0]} outside its band")
+    require(abs(on_cpu["average_jaccard"] - r["values"]["aj"]) < qg.NO_DRAWS_TOL["aj"]
+            and abs(on_cpu["occlusion_accuracy"] - r["values"]["oa"]) < qg.NO_DRAWS_TOL["oa"],
+            "the card's fitted scene tracks otherwise on the CPU")
+    missed = [k for k in ("aj", "oa") if not b[k][3]]
+    if missed:
+        log("fit", f"mini-fit {' and '.join(missed)} outside the pinned band: printed, not failed (the fit "
+                   "without random draws below is held to the JAX package's and to all four bands)")
+
+    r = qg.run(DEVICE, draws=False, clip=clip)
+    b, near = qg.bands(r["values"]), qg.near_jax_without_draws(r["values"])
+    log("fit", f"mini-fit without random draws ({head}, ARAP off, zero split noise, {r['fit_s']:.1f} s): "
+               + "; ".join(f"{k} {v:.4f} (JAX {ref:.4f} +- {tol:.4f}: {'inside' if ok else 'OUTSIDE'})"
+                           for k, (v, ref, tol, ok) in near.items())
+               + f"; pinned bands: {fmt(b)} {card}")
+    for k in near:
+        require(near[k][3], f"mini-fit without random draws: {k} {near[k][0]} not within {near[k][2]} of JAX's "
+                            f"{near[k][1]}")
+        require(b[k][3], f"mini-fit without random draws: {k} {b[k][0]} outside its band")
+
+
+def cli_phase(card: str) -> None:
+    """Phase 14: the training CLI on the card: train, checkpoint, resume,
+    reload and render."""
+    import contextlib
+    import io
+    import pathlib
+    import tempfile
+
+    import torch
+
+    from splatter_a_video_tpu_torch import inference
+    from splatter_a_video_tpu_torch.apps import train as train_app
+    from splatter_a_video_tpu_torch.apps.train_state_io import load_scene_from_ckpt
+    from splatter_a_video_tpu_torch.models import camera
+    from splatter_a_video_tpu_torch.ops import rasterize
+
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--synthetic", "--i_weight", "10", "--i_print", "10", "--tensorboard", "0", "--out_dir", tmp]
+        common += [] if DEVICE == "cuda" else ["--device", DEVICE]   # the CLI's default device is cuda
+        t0 = time.perf_counter()
+        state = train_app.main(common + ["--num_iters", "20"])
+        first_s = time.perf_counter() - t0
+        files = sorted(p.name for p in pathlib.Path(tmp).iterdir())
+        for f in ("args.json", "ckpt_000010", "ckpt_000020", "scene_cfg.json", "history.json"):
+            require(f in files, f"CLI did not write {f}: {files}")
+        require(state.step == 20 and state.scene.device.type == DEVICE, "CLI run")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            state = train_app.main(common + ["--num_iters", "30", "--resume"])
+        require(f"resumed from {tmp} at step 20" in out.getvalue(), "CLI --resume did not resume at step 20")
+        hist = json.loads((pathlib.Path(tmp) / "history.json").read_text())
+        require(hist[-1]["step"] == 30 and state.step == 30, f"resumed run ended at {hist[-1]['step']}")
+        scene = load_scene_from_ckpt(tmp, device=DEVICE)
+        cam = camera.canonical_camera(64, 48)   # the CLI's synthetic clip
+        frame = inference.render_frame(scene, 3.0, cam.extrinsic,
+                                       rasterize.RasterizeConfig(width=64, height=48, max_intersections=1 << 19),
+                                       device=DEVICE)
+        rgb = frame.features["rgb"]
+        require(rgb.device.type == DEVICE and bool(torch.isfinite(rgb).all()), "reloaded scene does not render")
+    log("cli", f"apps.train --synthetic: 20 steps in {first_s:.1f} s wrote {', '.join(files)}; --resume --num_iters "
+               f"30 resumed at step 20 and ended at step {hist[-1]['step']} (loss {hist[-1]['loss']:.4f}); "
+               f"load_scene_from_ckpt ({scene.cfg.num_frames} frames, capacity {scene.cfg.capacity}) renders on the "
+               f"card {card}")
 
 
 def main() -> int:
@@ -676,7 +934,7 @@ def main() -> int:
     # the step's parts, each timed alone from the same state (wall, with a synchronize)
     leaves = {k: v.detach().requires_grad_(True) for k, v in state0.scene.params.items()}
     sinks = [torch.zeros((CAPACITY, 2), device=dev, requires_grad=True) for _ in range(2)]
-    arap_idx = losses.arap_sample(CAPACITY, tcfg.arap_sample_num, scene.alive, state0.generator, dev)
+    arap_idx = losses.arap_sample(CAPACITY, tcfg.arap_sample_num, scene.alive, state0.key, dev)
     fwd = lambda: trainer.compute_losses(tcfg, tcfg.raster_cfg(), state0.scene, batch, arap_idx, 0,
                                          leaves, *sinks, extr)[0]
     grads = dict(zip(leaves, torch.autograd.grad(fwd(), list(leaves.values()), allow_unused=True)))
@@ -745,6 +1003,11 @@ def main() -> int:
     log("times", f"K1 blend_forward (C={C}, 16x16): {resources(attrs['blend_forward'])}; "
                  f"K2 expand_intersections: {resources(attrs['expand_intersections'])} {card}")
 
+    # ---- 12-14. the fit at full width, the mini-fit bands, the CLI -----------
+    fit_launches = fit_phase(args, dev, card)
+    mini_fit_phase(card)
+    cli_phase(card)
+
     kernels = [
         {"name": "blend_forward", "route": "cuda",
          "source": "splatter_a_video_tpu_torch/csrc/blend_forward.cu",
@@ -775,6 +1038,10 @@ def main() -> int:
     ]
     for k in kernels:
         k.update(attrs[k["name"]])
+        # `launches` counts the main path, the full-width fit; the render
+        # and the ten train steps keep their own counts beside it
+        k["render_launches"], k["step_launches"] = launches[k["name"]], train_launches[k["name"]]
+        k["launches"] = fit_launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -8,9 +8,9 @@ fields (a dict, e.g. `dataclasses.asdict(cfg)`, or the port's
 `SceneConfig`). Names, shapes and dtypes are checked against the config.
 
 A train state adds the optimizer (optax keeps one Adam state per
-attribute: pass its shared `count` and the `mu` / `nu` dicts) and the
-`DensifyState` arrays; the JAX key does not carry over (the port draws
-from a `torch.Generator`).
+attribute: pass its shared `count` and the `mu` / `nu` dicts), the
+`DensifyState` arrays and the PRNG key (`np.asarray(state.key)`: the port
+draws with its copy of JAX's generator, `train/prng.py`).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from .device import resolve_device
 from .models.gaussians import GaussianScene, SceneConfig
 from .train import density as _density
 from .train import optim as _optim
+from .train import prng as _prng
 from .train import trainer as _trainer
 
 _MOTION = ("pos_poly_feat", "pos_fourier_feat", "rot_poly_feat", "rot_fourier_feat")
@@ -124,11 +125,13 @@ def train_state_from_numpy(
     step: int,
     seed: int = 0,
     device="cuda",
+    key=None,
 ) -> "_trainer.TrainState":
     """A port `TrainState` from numpy: the scene as `scene_from_numpy`,
     opt = {"count": int, "mu": {name: array}, "nu": {name: array}} with
     one entry per scene parameter, densify = the three `DensifyState`
-    arrays, the step count and the generator's seed."""
+    arrays, the step count and the key: the two uint32 words of `key`, or
+    `PRNGKey(seed)` when it is None."""
     scene = scene_from_numpy(params, aux, cfg, device=device)
     dev = scene.device
     layout = {k: (tuple(v.shape), np.dtype(np.float32)) for k, v in scene.params.items()}
@@ -147,12 +150,12 @@ def train_state_from_numpy(
         ),
         densify_state=_density.DensifyState(**{k: tensor(densify[k]) for k in dlayout}),
         step=int(step),
-        generator=torch.Generator(device=dev).manual_seed(seed),
+        key=_prng.key(seed) if key is None else torch.as_tensor(np.asarray(key, np.int64)).reshape(2),
     )
 
 
 def train_state_to_numpy(state: "_trainer.TrainState") -> dict:
-    """Inverse of `train_state_from_numpy` (without the generator)."""
+    """Inverse of `train_state_from_numpy`."""
     params, aux, cfg = scene_to_numpy(state.scene)
     arr = lambda t: t.detach().cpu().numpy()
     return dict(
@@ -162,4 +165,5 @@ def train_state_to_numpy(state: "_trainer.TrainState") -> dict:
              "nu": {k: arr(v) for k, v in state.opt_state.nu.items()}},
         densify={k: arr(v) for k, v in state.densify_state._asdict().items()},
         step=state.step,
+        key=state.key.numpy().astype(np.uint32),
     )

@@ -18,3 +18,14 @@ def resolve_device(device) -> torch.device:
             " pass device='cpu' to run the plain PyTorch path"
         )
     return dev
+
+
+def to_device(x: torch.Tensor, device) -> torch.Tensor:
+    """A CPU tensor on `device` (None: where it is); to a GPU through pinned
+    memory and a non-blocking copy, so the host does not wait for the card."""
+    if device is None:
+        return x
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return x.to(dev)
+    return x.pin_memory().to(dev, non_blocking=True)

@@ -67,8 +67,13 @@ def _eval_sh_basis(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tens
 
 def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor, visible=None) -> torch.Tensor:
     """SH [N, K, C] + view dirs [N, 3] -> ReLU(basis + 0.5) [N, C]; rows with
-    `visible` false are zero."""
-    colors = torch.clamp_min(_eval_sh_basis(deg, sh, dirs) + 0.5, 0.0)
+    `visible` false are zero.
+
+    The ReLU is `torch.maximum`, whose gradient at a tie (a colour of
+    exactly 0, e.g. a black pixel's init colour) is split 0.5 / 0.5 as
+    JAX's `maximum` splits it; `clamp_min` would pass all of it."""
+    basis = _eval_sh_basis(deg, sh, dirs) + 0.5
+    colors = torch.maximum(basis, basis.new_zeros(()))
     if visible is not None:
         colors = colors * visible.reshape(sh.shape[0], 1).to(colors.dtype)
     return colors

@@ -13,7 +13,7 @@ opacity reset, with the same semantics:
   * Adam moments of newly used slots are zeroed.
 
 The split children's N(0, 1) noise is a [capacity, 3] tensor passed in, or
-drawn from a `torch.Generator`.
+drawn from a JAX-compatible key (`prng.normal`) as the JAX package draws it.
 """
 
 from __future__ import annotations
@@ -23,8 +23,10 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from ..device import to_device
 from ..models.gaussians import GaussianScene
 from ..ops.quaternion import inverse_sigmoid, quat_normalize, quat_to_rotmat
+from . import prng
 from .optim import AdamState, zero_moments_at
 
 
@@ -135,16 +137,16 @@ def _lexsort(keys):
 @torch.no_grad()
 def densify_and_prune(scene: GaussianScene, opt_state: AdamState, state: DensifyState, step: int,
                       cfg: DensifyConfig, noise: Optional[torch.Tensor] = None,
-                      generator: Optional[torch.Generator] = None):
+                      key: Optional[torch.Tensor] = None):
     """One density-control event: (scene, opt_state, densify state, info).
     `noise` [capacity, 3] N(0, 1) draws for split children, drawn from
-    `generator` when not given."""
+    `key` when not given."""
     cap = scene.alive.shape[0]
     dev = scene.alive.device
     alive = scene.alive
     params = scene.params
     if noise is None:
-        noise = torch.randn((cap, 3), generator=generator, device=dev)
+        noise = to_device(prng.normal(key, (cap, 3)), dev)
 
     grads = torch.where(state.denom > 0, state.pos_grad_accum / state.denom, 0.0)
     grads = torch.nan_to_num(grads)

@@ -6,7 +6,8 @@ median-normalised depth loss and the ARAP rigidity energy.
 Quantiles and medians are computed as the JAX package computes them
 (sort, then linear interpolation; the median averages the two middle
 values), not with `torch.median`, which returns the lower one. ARAP's
-sample indices come in as a tensor, or are drawn from a `torch.Generator`.
+sample indices come in as a tensor, or are drawn from a JAX-compatible
+key (`prng`) as the JAX package draws them.
 """
 
 from __future__ import annotations
@@ -15,8 +16,10 @@ from typing import Optional
 
 import torch
 
+from ..device import to_device
 from ..ops.knn import _pairwise_sq_dists
 from ..ops.ssim import ssim as _ssim
+from . import prng
 
 
 def _quantile(x: torch.Tensor, q: float) -> torch.Tensor:
@@ -179,26 +182,28 @@ def estimate_rotation(src_edges, tgt_edges, weight) -> torch.Tensor:
     return torch.where(bad[:, None, None], eye, R)
 
 
-def arap_sample(N: int, sample_num: int, alive=None, generator: Optional[torch.Generator] = None,
+def arap_sample(N: int, sample_num: int, alive=None, key: Optional[torch.Tensor] = None,
                 device=None) -> torch.Tensor:
-    """ARAP sample indices: with replacement, uniform over the alive slots."""
+    """ARAP sample indices drawn from `key` as the JAX package draws them:
+    with replacement, uniform over the alive slots (`jax.random.choice`
+    with p = alive / count), or over all N slots (`jax.random.randint`)
+    without a mask."""
     S = min(sample_num, N)
     if alive is None:
-        return torch.randint(0, N, (S,), generator=generator, device=device)
+        return to_device(prng.randint(key, (S,), 0, N), device)
     p = alive.to(torch.float32)
-    return torch.multinomial(p / torch.clamp_min(p.sum(), 1.0), S, replacement=True,
-                             generator=generator)
+    return prng.choice(key, N, (S,), p / torch.clamp_min(p.sum(), 1.0))
 
 
 def arap_loss(pos_t1, pos_t2, sample_idx=None, k: int = 5, sample_num: int = 512,
-              alive=None, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+              alive=None, key: Optional[torch.Tensor] = None) -> torch.Tensor:
     """As-rigid-as-possible error between two instants on a sample of
     points: per-point rotations (no gradient) from the kNN edges at t1 and
     t2, then the stretch of the rotated t1 edges against the t2 edges,
     weighted and halved (Nt = 2). `sample_idx` [S] is drawn with
-    `arap_sample` when not given."""
+    `arap_sample` from `key` when not given."""
     if sample_idx is None:
-        sample_idx = arap_sample(pos_t1.shape[0], sample_num, alive, generator, pos_t1.device)
+        sample_idx = arap_sample(pos_t1.shape[0], sample_num, alive, key, pos_t1.device)
     nn_idx, w, valid = arap_connectivity(pos_t1, k=k, query_idx=sample_idx, alive=alive)
     src = torch.where(valid[..., None], pos_t1[sample_idx][:, None, :] - pos_t1[nn_idx], 0.0)
     tgt = torch.where(valid[..., None], pos_t2[sample_idx][:, None, :] - pos_t2[nn_idx], 0.0)

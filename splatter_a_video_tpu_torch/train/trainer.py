@@ -13,9 +13,11 @@ one jitted function; here it runs eagerly, with the gradient from
 reference are zero tensors that require grad. Density control and the
 opacity reset are separate steps, called on the host's schedule.
 
-Randomness (ARAP samples, split-child noise) comes from the state's
-`torch.Generator`, or is passed in as tensors: the two packages draw
-different streams, so a parity test hands the JAX draws to the port.
+Randomness (ARAP samples, split-child noise) comes from the state's key,
+split at every train and density step as the JAX step splits its key, and
+drawn with the port's copy of JAX's generator (`prng`): from the same seed
+both packages draw the same samples. A test may also pass the draws in as
+tensors.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from ..ops import sh as _sh
 from . import density as _density
 from . import losses as _losses
 from . import optim as _optim
+from . import prng as _prng
 
 
 @dataclass(frozen=True)
@@ -88,7 +91,7 @@ class TrainState(NamedTuple):
     opt_state: _optim.AdamState
     densify_state: _density.DensifyState
     step: int
-    generator: torch.Generator
+    key: torch.Tensor       # JAX-compatible PRNG key, CPU int64 [2] (`prng`)
 
 
 class Batch(NamedTuple):
@@ -184,11 +187,11 @@ def project_for_training(inp, extr, rcfg, extra, white_bg, uv_sink, depth_bg=2.0
 
 def compute_losses(cfg: TrainerConfig, rcfg, scene: GaussianScene, batch: Batch, arap_idx,
                    step: int, params, uv_sink, abs_sink, extr_t1, pos2_transform=None,
-                   generator: Optional[torch.Generator] = None):
+                   key: Optional[torch.Tensor] = None):
     """The loss of one (t1, t2) pair: (loss, (metrics, radius)).
 
     `arap_idx` [S] are the ARAP sample indices, or None to draw them from
-    `generator`. `pos2_transform` maps the t2 positions into the t2 camera
+    `key`. `pos2_transform` maps the t2 positions into the t2 camera
     frame before they are blended as `track_gs` (camera refinement).
     """
     sc = GaussianScene(params=params, aux=scene.aux, cfg=scene.cfg)
@@ -218,7 +221,7 @@ def compute_losses(cfg: TrainerConfig, rcfg, scene: GaussianScene, batch: Batch,
     zero = pred_rgb.new_zeros(())
     loss_arap = (
         _losses.arap_loss(inp1["position"], pos2, arap_idx, k=cfg.arap_knn,
-                          sample_num=cfg.arap_sample_num, alive=sc.alive, generator=generator)
+                          sample_num=cfg.arap_sample_num, alive=sc.alive, key=key)
         if cfg.arap_weight else zero
     )
     # zero-weight terms are skipped (0 * NaN would still poison the sum)
@@ -290,6 +293,7 @@ def make_train_step(cfg: TrainerConfig, extr: np.ndarray, frames: Optional[Frame
 
     def train_step(state: TrainState, batch: Batch, arap_idx: Optional[torch.Tensor] = None):
         batch = resolve_batch(frames, batch)
+        key, sub = _prng.split(state.key)
         scene = state.scene
         names = list(scene.params)
         params = {k: v.detach().requires_grad_(True) for k, v in scene.params.items()}
@@ -297,8 +301,7 @@ def make_train_step(cfg: TrainerConfig, extr: np.ndarray, frames: Optional[Frame
         uv_sink = torch.zeros((N, 2), device=dev, requires_grad=True)
         abs_sink = torch.zeros((N, 2), device=dev, requires_grad=True)
         loss, (metrics, radius) = compute_losses(
-            cfg, rcfg, scene, batch, arap_idx, state.step, params, uv_sink, abs_sink, extr_t,
-            generator=state.generator,
+            cfg, rcfg, scene, batch, arap_idx, state.step, params, uv_sink, abs_sink, extr_t, key=sub,
         )
         inputs = [params[k] for k in names] + [uv_sink, abs_sink]
         grads = torch.autograd.grad(loss, inputs, allow_unused=True)
@@ -310,18 +313,19 @@ def make_train_step(cfg: TrainerConfig, extr: np.ndarray, frames: Optional[Frame
                                            viewspace_grad_norm(cfg, duv))
         new_scene = GaussianScene(params=new_params, aux=scene.aux, cfg=scene.cfg)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        return TrainState(new_scene, opt_state, dstate, state.step + 1, state.generator), metrics
+        return TrainState(new_scene, opt_state, dstate, state.step + 1, key), metrics
 
     def density_step(state: TrainState, noise: Optional[torch.Tensor] = None):
+        key, sub = _prng.split(state.key)
         scene, opt_state, dstate, info = _density.densify_and_prune(
             state.scene, state.opt_state, state.densify_state, state.step, cfg.densify,
-            noise=noise, generator=state.generator,
+            noise=noise, key=sub,
         )
-        return TrainState(scene, opt_state, dstate, state.step, state.generator), info
+        return TrainState(scene, opt_state, dstate, state.step, key), info
 
     def opacity_reset_step(state: TrainState):
         scene, opt_state = _density.reset_opacity(state.scene, state.opt_state)
-        return TrainState(scene, opt_state, state.densify_state, state.step, state.generator)
+        return TrainState(scene, opt_state, state.densify_state, state.step, state.key)
 
     return train_step, density_step, opacity_reset_step
 
@@ -329,7 +333,7 @@ def make_train_step(cfg: TrainerConfig, extr: np.ndarray, frames: Optional[Frame
 def init_train_state(cfg: TrainerConfig, scene: GaussianScene, seed: int = 0,
                      device="cuda") -> TrainState:
     """The state at step 0: the scene on `device`, zero Adam moments and
-    statistics, and a generator seeded with `seed` on that device."""
+    statistics, and the key `jax.random.PRNGKey(seed)` (on the CPU)."""
     del cfg
     dev = resolve_device(device)
     scene = scene.to(dev)
@@ -338,7 +342,7 @@ def init_train_state(cfg: TrainerConfig, scene: GaussianScene, seed: int = 0,
         opt_state=_optim.adam_init(scene.params),
         densify_state=_density.init_state(scene.alive.shape[0], dev),
         step=0,
-        generator=torch.Generator(device=dev).manual_seed(seed),
+        key=_prng.key(seed),
     )
 
 

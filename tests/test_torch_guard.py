@@ -7,12 +7,17 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 from splatter_a_video_tpu_torch import convert, inference
+from splatter_a_video_tpu_torch.apps import train as train_app
+from splatter_a_video_tpu_torch.apps import train_state_io
+from splatter_a_video_tpu_torch.eval import tapvid
 from splatter_a_video_tpu_torch.models import gaussians
-from splatter_a_video_tpu_torch.train import trainer
+from splatter_a_video_tpu_torch.train import fit, trainer
+from splatter_a_video_tpu_torch.utils import checkpoint
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "splatter_a_video_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -52,7 +57,10 @@ def test_importing_the_port_loads_no_jax():
     "fn",
     [inference.render_frame, inference.render_video, inference.render_nvs,
      inference.render_stereo, convert.scene_from_numpy, convert.train_state_from_numpy,
-     gaussians.create_scene, trainer.init_train_state, trainer.make_train_step],
+     gaussians.create_scene, trainer.init_train_state, trainer.make_train_step,
+     fit.fit_clip, fit.build_scene_from_clip, fit.scene_from_tracks, inference.track_correspondences,
+     inference.gaussian_trajectories, tapvid.evaluate_scene_tracking, train_state_io.load_scene_from_ckpt,
+     checkpoint.load_state_dict],
     ids=lambda f: f.__name__,
 )
 def test_entry_points_default_to_cuda(fn):
@@ -63,7 +71,6 @@ def test_render_without_device_raises_without_gpu():
     """Without a GPU the default device raises; nothing falls back to the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device renders there")
-    import numpy as np
 
     from splatter_a_video_tpu_torch.models.gaussians import GaussianScene, SceneConfig
     from splatter_a_video_tpu_torch.ops.rasterize import RasterizeConfig
@@ -84,3 +91,20 @@ def test_render_without_device_raises_without_gpu():
         trainer.make_train_step(trainer.TrainerConfig(width=16, height=16, num_frames=1), np.eye(3, 4))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         trainer.init_train_state(trainer.TrainerConfig(width=16, height=16, num_frames=1), scene)
+
+
+def test_fit_and_cli_without_device_raise_without_gpu(tmp_path):
+    """`fit_clip` and the training CLI train on the GPU unless told
+    otherwise; without one they raise before any work."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device trains there")
+    from splatter_a_video_tpu_torch.data import synthetic
+
+    clip = synthetic.make_clip(synthetic.SyntheticClipConfig(num_frames=2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fit.fit_clip(clip, fit.FitConfig(num_iters=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_app.main(["--synthetic", "--num_iters", "1", "--out_dir", str(tmp_path / "run")])
+    assert not (tmp_path / "run").exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        inference.track_correspondences(None, 0.0, np.zeros((1, 2)), 1.0, None, None)

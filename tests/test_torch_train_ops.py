@@ -31,6 +31,7 @@ from splatter_a_video_tpu_torch.ops import ssim as tssim
 from splatter_a_video_tpu_torch.train import density as tden
 from splatter_a_video_tpu_torch.train import losses as tl
 from splatter_a_video_tpu_torch.train import optim as topt
+from splatter_a_video_tpu_torch.train import prng as tprng
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -212,11 +213,18 @@ def test_arap_loss_and_gradient_match():
 
 def test_arap_sample_draws_alive_slots_only():
     alive = torch.arange(1000) < 37
-    idx = tl.arap_sample(1000, 512, alive, torch.Generator().manual_seed(0))
+    idx = tl.arap_sample(1000, 512, alive, tprng.key(0))
     assert idx.shape == (512,) and bool((idx < 37).all())
-    assert tl.arap_sample(100, 10, None, torch.Generator().manual_seed(0)).shape == (10,)
+    assert tl.arap_sample(100, 10, None, tprng.key(0)).shape == (10,)
     # as in JAX, never more samples than points
-    assert tl.arap_sample(20, 512, None, torch.Generator().manual_seed(0)).shape == (20,)
+    assert tl.arap_sample(20, 512, None, tprng.key(0)).shape == (20,)
+    # and the JAX package's draws from the same key
+    key = jax.random.PRNGKey(3)
+    p = jnp.asarray(alive.numpy(), jnp.float32) / 37.0
+    assert np.array_equal(tl.arap_sample(1000, 512, alive, tprng.key(3)).numpy(),
+                          np.array(jax.random.choice(key, 1000, (512,), replace=True, p=p)))
+    assert np.array_equal(tl.arap_sample(100, 10, None, tprng.key(3)).numpy(),
+                          np.array(jax.random.randint(key, (10,), 0, 100)))
 
 
 @pytest.mark.parametrize("kind", ["random", "unchanged", "degenerate", "reflection"])

@@ -4,7 +4,8 @@ scene (256 slots, 120 alive, cubic-spline trajectories) and batch in both
 packages. JAX runs on the CPU with Pallas in interpret mode; the port on
 the CPU runs the plain versions of K1-K4. The JAX random draws (ARAP
 samples, split noise) are reproduced from the JAX key and handed to the
-port. The JAX step is compiled once for the module (about 40 s on a CPU).
+port, and the port's own key draws them too (`train/prng.py`). The JAX
+step is compiled once for the module (about 40 s on a CPU).
 
 Tolerances: the loss terms rtol 1e-5; the Adam moments (mu = 0.1 g and
 nu = 0.001 g^2 after one step) at the blend's gradient bars, atol 3e-4 and
@@ -80,7 +81,7 @@ def batch_arrays():
 
 
 def jax_state_arrays(state):
-    """The port's train-state carry of a JAX TrainState."""
+    """The port's train-state carry of a JAX TrainState, key included."""
     inner = state.opt_state.inner_states
     adam = {k: v.inner_state[0] for k, v in inner.items()}
     counts = {int(a.count) for a in adam.values()}
@@ -95,6 +96,7 @@ def jax_state_arrays(state):
              "nu": {k: np.array(a.nu[k]) for k, a in adam.items()}},
         densify={k: np.array(v) for k, v in state.densify_state._asdict().items()},
         step=int(state.step),
+        key=np.array(state.key),
     )
 
 
@@ -129,8 +131,11 @@ def run():
     ts2, tinfo = t_density(ts1j, noise=torch.from_numpy(np.array(noise)))
     js3 = j_reset(js2)
     ts3 = t_reset(convert.train_state_from_numpy(**jax_state_arrays(js2), device="cpu"))
+    # the same steps drawing from the port's own key
+    ts1_own, _ = t_train(ts0, tbatch)
+    ts2_own, tinfo_own = t_density(ts1j)
     return dict(js0=js0, js1=js1, jm=jm, ts1=ts1, tm=tm, js2=js2, jinfo=jinfo, ts2=ts2,
-                tinfo=tinfo, js3=js3, ts3=ts3)
+                tinfo=tinfo, js3=js3, ts3=ts3, ts1_own=ts1_own, ts2_own=ts2_own, tinfo_own=tinfo_own)
 
 
 @pytest.mark.parametrize("name", ["loss", "loss_rgb", "loss_flow", "loss_depth", "loss_arap",
@@ -217,3 +222,20 @@ def test_train_state_round_trip(run):
     for k, v in run["ts1"].opt_state.nu.items():
         assert torch.equal(back.opt_state.nu[k], v)
     assert back.step == 1 and back.opt_state.count == 1
+
+
+def test_steps_draw_what_the_jax_steps_draw(run):
+    """Without injected draws the port splits its key as the JAX steps split
+    theirs: the train step draws JAX's ARAP samples (the same step, bit for
+    bit, as with the injected draw) and the density step JAX's split noise
+    (within float32 rounding of erfinv: atol 1e-6 on the params)."""
+    for name, v in run["ts1"].scene.params.items():
+        assert torch.equal(run["ts1_own"].scene.params[name], v), name
+    assert np.array_equal(run["ts1_own"].key.numpy(), np.array(run["js1"].key))
+    assert np.array_equal(run["ts2_own"].key.numpy(), np.array(run["js2"].key))
+    for f in tden.DensifyInfo._fields:
+        assert int(getattr(run["tinfo_own"], f)) == int(getattr(run["jinfo"], f)), f
+    np.testing.assert_array_equal(run["ts2_own"].scene.alive.numpy(), np.array(run["js2"].scene.alive))
+    for name in _attrs(run):
+        np.testing.assert_allclose(run["ts2_own"].scene.params[name].numpy(),
+                                   np.array(run["js2"].scene.params[name]), atol=1e-6, err_msg=name)
