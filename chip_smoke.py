@@ -28,12 +28,21 @@ and holds each against its plain PyTorch version at the flagship shapes
      beside theirs), and without random draws held to the JAX package's
      fit and to all four bands (see `mini_fit_phase`); the training CLI
      (`apps.train --synthetic`: train, checkpoint, `--resume`, reload and
-     render).
+     render) and the native track loader, built with this machine's g++;
+  side paths (phases 15-18): editing the flagship scene (selection at
+     K_idx 10 under the central 427x240, 20 appearance steps, 5 whole-frame
+     steps, layers, a moved copy); pose refinement from 4 frames at known
+     twists, then 30 steps of `fit_clip(refine_camera=True)` on phase 12's
+     clip with a checkpoint and a resume; two atlases at full width; the
+     perspective engine at 800x800 with `EngineConfig`'s defaults. Their
+     new blend instances (K1 at K_idx 10 and at C = 4, K3 and K4 at C = 4,
+     the engine's perspective C = 4) are held to the plain versions too.
 
 Every kernel check is `torch.equal` against the plain version.
 
-The launch counters are set to 0 just before each of the three main paths
-(the video render, the ten train steps, the fit) and read just after; the
+The launch counters are set to 0 just before each of the main paths (the
+video render, the ten train steps, the fit, and each side path's steps)
+and read just after; the
 kernel table's `launches` are the fit's, one per kernel and step. Each phase
 prints one line; any failure ends the run with a non-zero exit and no
 result line. The `[times]` lines and the kernel table carry each kernel's
@@ -42,7 +51,8 @@ block at the main path's instance (`rasterize_gpu.kernel_attributes`),
 the port's kernels' own times inside the frame and step profiles, and
 beside K2 and K4 the PyTorch calls that do part of their work (the owners
 alone, a fill of K2's outputs, the gather of K4's rows), as references.
-The line before the last is the kernel table as JSON, the last line
+The kernel table's `instances` list the side paths' blend instances. The
+line before the last is the kernel table as JSON, the last line
 `{"ok": true, "device": {...}}`. Needs one CUDA device.
 """
 
@@ -80,6 +90,20 @@ FIT_CLIP = dict(width=W, height=H, num_frames=FRAMES, num_blobs=6, blob_radius=4
 FIT_DENSITY = dict(densify_start_iter=100, duplicate_interval=100, prune_interval=100, opacity_reset_interval=200)
 FIT_CUTS = ("300 of 20,000 steps; density schedule moved forward (start 100, interval 100, opacity reset 200: "
             "events at 200 and 300, reset at 201); track_grid 4, not 2")
+# phase 15, editing the flagship scene
+EDIT_T, EDIT_MASK, EDIT_K = 0.0, (427, 240), 10           # the central 427x240 at t = 0, first-K ids
+EDIT_STEPS, EDIT_IMG_STEPS, EDIT_BUSY_STEPS = 20, 5, 2
+EDIT_SCALE, EDIT_DELTA = (1.0, 0.6, 0.6), (0.2, 0.0, 0.0)
+EDIT_CUTS = "cut from 1000; the whole-frame transfer 5 of 1000"
+# phase 16, pose refinement and the joint fit
+POSE_FRAMES, POSE_ITERS, POSE_LR, POSE_TWIST = 4, 30, 3e-3, 0.01   # lr: refine_camera_poses's default
+POSE_FIT_STEPS, POSE_WARMUP = 30, 10
+# phase 17, two atlases cut from the flagship arrays: (name, alive, slots)
+ATLAS_SPLIT = (("gs_base", 60_000, 65_536), ("gs_fg", 40_000, 65_536))
+ATLAS_STEPS = 10
+# phase 18, the perspective engine at the NeRF-synthetic view size
+ENGINE_WH, ENGINE_VIEWS, ENGINE_STEPS, ENGINE_SH_INTERVAL = 800, 8, 20, 10
+ENGINE_GT, ENGINE_ORBIT = 20_000, 2.5      # ground-truth cluster size, camera orbit radius
 
 
 def log(phase: str, msg: str) -> None:
@@ -320,9 +344,26 @@ def resources(a: dict) -> str:
     return f"{a['regs']} regs, {a['local_bytes']} B local, {a['shared_bytes']} B shared"
 
 
-def fit_phase(args, dev, card: str) -> dict:
+def fit_configs(args, steps: int, **fit_kw):
+    """(FitConfig, TrainerConfig) of the full-width fit, `steps` long:
+    scripts/e2e_480p.py:54-120 with the textured clip, flow weight 2, near
+    plane 0.2, and the cuts of FIT_CUTS."""
+    from splatter_a_video_tpu_torch.train import density, fit, optim, trainer
+
+    fcfg = fit.FitConfig(**{**dict(num_iters=steps, num_fg_samples=60_000, num_bg_samples=40_000,
+                                   num_track_samples=TRACKS, log_every=max(steps // 40, 1), capacity_factor=1.31,
+                                   init_num_points=ALIVE, seed=args.seed), **fit_kw})
+    tcfg = trainer.TrainerConfig(
+        width=W, height=H, num_frames=FRAMES, nearest=0.2, loss_flow_weight=2.0, num_track_samples=TRACKS,
+        max_intersections=MAX_INTERSECTIONS, optim=optim.OptimConfig(max_steps=steps),
+        densify=density.DensifyConfig(densify_stop_iter=100_000, densify_grad_threshold=0.0002,
+                                      size_prune_always=True, **FIT_DENSITY))
+    return fcfg, tcfg
+
+
+def fit_phase(args, dev, card: str):
     """Phase 12: `fit.fit_clip` at full width for FIT_STEPS steps; returns
-    the launch counts of the fit."""
+    the launch counts of the fit and its clip (phase 16 fits it again)."""
     import pathlib
     import tempfile
 
@@ -331,21 +372,13 @@ def fit_phase(args, dev, card: str) -> dict:
     from splatter_a_video_tpu_torch.data import pairs, synthetic
     from splatter_a_video_tpu_torch.models import camera
     from splatter_a_video_tpu_torch.ops import rasterize_gpu as rg
-    from splatter_a_video_tpu_torch.train import density, fit, hooks, optim, trainer
+    from splatter_a_video_tpu_torch.train import fit, hooks, trainer
     from splatter_a_video_tpu_torch.utils import checkpoint
 
     t0 = time.perf_counter()
     clip = synthetic.make_clip(synthetic.SyntheticClipConfig(seed=args.seed, **FIT_CLIP))
     clip_s = time.perf_counter() - t0
-    # scripts/e2e_480p.py:54-120: textured clip, flow weight 2, near plane 0.2
-    fcfg = fit.FitConfig(num_iters=FIT_STEPS, num_fg_samples=60_000, num_bg_samples=40_000,
-                         num_track_samples=TRACKS, log_every=max(FIT_STEPS // 40, 1), capacity_factor=1.31,
-                         init_num_points=ALIVE, seed=args.seed)
-    tcfg = trainer.TrainerConfig(
-        width=W, height=H, num_frames=FRAMES, nearest=0.2, loss_flow_weight=2.0, num_track_samples=TRACKS,
-        max_intersections=MAX_INTERSECTIONS, optim=optim.OptimConfig(max_steps=FIT_STEPS),
-        densify=density.DensifyConfig(densify_stop_iter=100_000, densify_grad_threshold=0.0002,
-                                      size_prune_always=True, **FIT_DENSITY))
+    fcfg, tcfg = fit_configs(args, FIT_STEPS)
     events = [s for s in range(1, FIT_STEPS + 1) if trainer.should_densify(tcfg, s)]
     capacity = int(np.ceil(ALIVE * fcfg.capacity_factor / 128) * 128)
 
@@ -454,7 +487,7 @@ def fit_phase(args, dev, card: str) -> dict:
             "full-width checkpoint round trip differs")
     log("fit", f"checkpoint at step {step}: {size / 2**20:.1f} MiB, saved in {save_s:.2f} s, restored in "
                f"{load_s:.2f} s; every tensor torch.equal, step and Adam count {back.opt_state.count}")
-    return fit_launches
+    return fit_launches, clip
 
 
 def mini_fit_phase(card: str) -> None:
@@ -558,6 +591,475 @@ def cli_phase(card: str) -> None:
                f"30 resumed at step 20 and ended at step {hist[-1]['step']} (loss {hist[-1]['loss']:.4f}); "
                f"load_scene_from_ckpt ({scene.cfg.num_frames} frames, capacity {scene.cfg.capacity}) renders on the "
                f"card {card}")
+
+    # the native track loader, built here with this machine's g++
+    from splatter_a_video_tpu_torch.data import native_loader, pairs
+    from splatter_a_video_tpu_torch.data.video_flow import VideoFlowData
+
+    t0 = time.perf_counter()
+    require(native_loader.available(), "the native track loader did not build")
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.RandomState(0)
+        names, n = [f"{i:05d}" for i in range(4)], 37
+        for q in names:
+            for t in names:
+                np.save(pathlib.Path(tmp) / f"{q}_{t}.npy", (rng.rand(n, 4) * 50).astype(np.float32))
+        clip = VideoFlowData(frames=[np.zeros((8, 8, 3), np.float32)] * 4, depths_raw=[np.ones((8, 8), np.float32)] * 4,
+                             masks_raw=[np.zeros((8, 8), bool)] * 4, tracks=None, frame_names=names,
+                             tracks_dir=tmp).setup()
+        builder = pairs.BatchBuilder(clip, 16, slim=True)
+        require(builder._native is not None, "BatchBuilder did not engage the native loader on an on-disk clip")
+        b = builder.build(1, 3)
+        rows = np.load(pathlib.Path(tmp) / f"{names[1]}_{names[3]}.npy")
+        require(bool(b.track_valid.all()) and all((np.abs(rows - r) < 1e-6).all(1).any() for r in b.target_tracks),
+                "native batch rows are not rows of the track file")
+    log("cli", f"native track loader built in {build_s:.2f} s ({native_loader.library_path().name}); BatchBuilder "
+               "engages it on a track directory written with np.save; 16 rows of 37, each a row of its file")
+
+
+def blend_cost(kernel: str, nint: int, n_edges: int, N: int, C: int, pixels: int, applied: int, K: int = 0):
+    """(bound ms, "bytes" or "operations", bytes, flops) of K1 or K3 on
+    these inputs: each input read once and each output written once, and
+    the work these inputs need (every pixel of a tile tests every slot of
+    the tile; the applied pairs blend C channels, or back-propagate them)."""
+    R = 8 + C
+    if kernel == "blend_forward":
+        nbytes = 4 * nint + 4 * n_edges + N * (8 + 12 + 4 + 4 * C) + 4 * C + pixels * (C + 2 + K) * 4
+        ops = 256 * nint * 15 + applied * 2 * C
+    else:
+        nbytes = (4 * nint + 4 * n_edges + N * (8 + 12 + 4 + 4 * C) + 8 * C + pixels * (2 * C + 1) * 4
+                  + nint * R * 4)
+        ops = 256 * nint * 15 + applied * (40 + 5 * C + R)
+    by = "operations" if ops / FP32_FLOPS_PER_S > nbytes / HBM_BYTES_PER_S else "bytes"
+    return max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S) * 1e3, by, nbytes, ops
+
+
+def blend_instance(tag: str, pr, rc, cpm: float, seed: int, card: str, K: int = 0, backward: bool = True):
+    """K1 (and K3, then K4 on K3's rows) at the blend of the projection `pr`
+    under `rc`: each `torch.equal` to its plain version, timed, with its
+    bound. Returns {kernel: [instance row]} for the kernel table."""
+    import torch
+
+    from splatter_a_video_tpu_torch.ops import binning
+    from splatter_a_video_tpu_torch.ops import rasterize_gpu as rg
+
+    dev = pr.uv.device
+    Wd, Hd, tile = rc.width, rc.height, rc.block
+    groups = list(pr.feature_groups.values())
+    feats = torch.cat([v for v, _, _ in groups], dim=1).contiguous()
+    bg = torch.tensor([b for v, b, _ in groups for _ in range(v.shape[1])], dtype=torch.float32, device=dev)
+    mask = torch.tensor([1.0 if og else 0.0 for v, _, og in groups for _ in range(v.shape[1])], device=dev)
+    C, N = feats.shape[1], feats.shape[0]
+    b = binning.bin_intersections(pr.depth, pr.tiles, pr.rect_min, pr.rect_max, Wd, Hd, rc.max_intersections,
+                                  rc.max_tiles_per_gaussian, rc.block)
+    nint = int(b.num_intersections)
+    used = min(nint, rc.max_intersections)
+    name = f"{tag} C={C}" + (f" K_idx={K}" if K else "")
+    k1a = (b.gid, b.edges, pr.uv, pr.conic, pr.opacity, feats, bg, Wd, Hd, tile, K)
+    out, ref = rg.blend_forward(*k1a), rg.blend_forward_plain(*k1a)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, r) for a, r in zip(out, ref))
+    err = max((out[0] - ref[0]).abs().max().item(), (out[1] - ref[1]).abs().max().item())
+    require(same and torch.isfinite(out[0]).all().item(), f"K1 {name} differs from plain")
+    applied = int(out[2].sum())
+    bound, by, nbytes, ops = blend_cost("blend_forward", used, b.edges.shape[0], N, C, Wd * Hd, applied, K)
+    ms, plain_ms = cuda_ms(lambda: rg.blend_forward(*k1a), cpm), cuda_ms(lambda: rg.blend_forward_plain(*k1a), cpm,
+                                                                        PLAIN_REPS)
+    rows = {"blend_forward": [dict(instance=name, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                                   max_abs_err=err)]}
+    log("K1", f"{name} {Wd}x{Hd}: torch.equal on all four outputs: {same}; {nint} intersections of "
+              f"{rc.max_intersections}; {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by}: "
+              f"{ops:.3g} flops, {nbytes:.3g} B, {applied} applied pairs) {card}")
+    if not backward:
+        return rows
+    g = torch.randn((Hd, Wd, C), generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+    k3a = (b.gid, b.edges, pr.uv, pr.conic, pr.opacity, feats, bg, mask, out[0], out[1], g, Wd, Hd, tile, None)
+    dg, nc = rg.blend_backward(*k3a, return_ncontrib=True)
+    dref = rg.blend_backward_plain(*k3a)
+    red = rg.reduce_gaussians(dg, b.order, b.offs, b.tiles)
+    red_p = rg.reduce_gaussians_plain(dg, b.order, b.offs, b.tiles)
+    torch.cuda.synchronize()
+    same3 = torch.equal(dg[:used], dref[:used]) and torch.equal(nc, out[2])
+    same4 = torch.equal(red, red_p)
+    err3 = (dg[:used] - dref[:used]).abs().max().item()
+    require(same3 and torch.isfinite(dg[:used]).all().item(), f"K3 {name} differs from plain")
+    require(same4, f"K4 after K3 {name} differs from plain")
+    bound3, by3, nbytes3, ops3 = blend_cost("blend_backward", used, b.edges.shape[0], N, C, Wd * Hd, applied)
+    ms3 = cuda_ms(lambda: rg.blend_backward(*k3a), cpm)
+    plain3 = cuda_ms(lambda: rg.blend_backward_plain(*k3a), cpm, PLAIN_REPS)
+    rows["blend_backward"] = [dict(instance=name, ms=ms3, plain_ms=plain3, bound_ms=bound3, bound_by=by3,
+                                   max_abs_err=err3)]
+    log("K3", f"{name} {Wd}x{Hd}: {used} slots x {dg.shape[1]} rows torch.equal to plain: {same3} (replay "
+              f"ncontrib == K1's); K4 on its rows torch.equal to plain: {same4}; K3 {ms3:.4f} ms, plain "
+              f"{plain3:.3f} ms, bound {bound3:.4f} ms ({by3}: {ops3:.3g} flops, {nbytes3:.3g} B) {card}")
+    return rows
+
+
+def merge_rows(*parts):
+    out = {}
+    for p in parts:
+        for k, v in p.items():
+            out.setdefault(k, []).extend(v)
+    return out
+
+
+def reset_launches():
+    from splatter_a_video_tpu_torch.ops import rasterize_gpu as rg
+
+    for k in rg.LAUNCHES:
+        rg.LAUNCHES[k] = 0
+
+
+def read_launches() -> dict:
+    from splatter_a_video_tpu_torch.ops import rasterize_gpu as rg
+
+    return dict(rg.LAUNCHES)
+
+
+def busy_line(tag: str, fn, reps: int, per: int, wall: float, card: str) -> str:
+    """Device busy ms per unit of `fn` (which runs `per` units) against the
+    unit's wall ms, from torch.profiler."""
+    busy, top, ours = device_profile(fn, reps)
+    if busy is None:
+        return f"{tag}: profiler recorded no device kernels; busy share not measured {card}"
+    busy /= per
+    return (f"{tag}: device busy {busy:.3f} ms = {busy / wall:.1%} of {wall:.3f} ms wall; by kernel ms: "
+            + "; ".join(f"{n[:50]} {ms / per:.4f}" for n, ms in top[:5]) + "; the port's kernels: "
+            + "; ".join(f"{n} {ms / per:.4f}" for n, ms in ours) + f" {card}")
+
+
+def edit_phase(args, dev, card: str, scene, cpm: float) -> dict:
+    """Phase 15: selection under a mask, appearance optimisation toward an
+    edited frame, whole-frame transfer, layers and a moved copy of the
+    foreground, on the flagship scene; returns the kernel instances."""
+    import torch
+
+    from splatter_a_video_tpu_torch import inference
+    from splatter_a_video_tpu_torch.models import camera
+    from splatter_a_video_tpu_torch.ops import rasterize
+
+    cam = camera.canonical_camera(W, H)
+    rcfg = rasterize.RasterizeConfig(width=W, height=H, max_intersections=MAX_INTERSECTIONS)
+    mw, mh = EDIT_MASK
+    mask = np.zeros((H, W), np.float32)
+    mask[(H - mh) // 2:(H - mh) // 2 + mh, (W - mw) // 2:(W - mw) // 2 + mw] = 1.0
+    with torch.no_grad():
+        inp, _ = inference._scene_inputs(scene, EDIT_T, ())
+        pr = rasterize.project_gaussians(inp["position"], inp["scaling"], inp["rotation"], inp["opacity"],
+                                         inp["shs"], torch.as_tensor(cam.extrinsic, device=dev), rcfg)
+        rows = merge_rows(blend_instance("selection", pr, rcfg, cpm, args.seed + 9, card, K=EDIT_K, backward=False),
+                          blend_instance("appearance", pr, rcfg, cpm, args.seed + 9, card))
+
+    t0 = time.perf_counter()
+    sel = inference.select_gaussians_by_mask(scene, mask, cam, rcfg, t=EDIT_T, K_idx=EDIT_K, device=DEVICE)
+    sel_ms = (time.perf_counter() - t0) * 1e3
+    require(0 < len(sel) < int(scene.num_alive) and bool(scene.alive[torch.from_numpy(sel).to(dev)].all()),
+            f"selection of {len(sel)} Gaussians")
+    with torch.no_grad():
+        frame0 = inference.render_frame(scene, EDIT_T, cam.extrinsic, rcfg, device=DEVICE).features["rgb"]
+        m = torch.from_numpy(mask).to(dev)[..., None]
+        target = torch.where(m > 0, frame0 * torch.tensor(EDIT_SCALE, device=dev), frame0).cpu().numpy()
+
+    def mse(sc):
+        out = inference.render_frame(sc, EDIT_T, cam.extrinsic, rcfg, device=DEVICE).features["rgb"]
+        return float(torch.mean((out - torch.from_numpy(target).to(dev)) ** 2))
+
+    loss0 = mse(scene)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    edited = inference.optimize_appearance(scene, sel, target, cam, rcfg, t=EDIT_T, steps=EDIT_STEPS, device=DEVICE)
+    torch.cuda.synchronize()
+    app_ms = (time.perf_counter() - t0) * 1e3 / EDIT_STEPS
+    launches = read_launches()
+    require(launches == {k: EDIT_STEPS for k in launches}, f"appearance launch counts {launches}")
+    loss1 = mse(edited)
+    require(loss1 < loss0, f"appearance loss did not fall: {loss0} -> {loss1}")
+    other = torch.ones(scene.alive.shape[0], dtype=torch.bool, device=dev)
+    other[torch.from_numpy(sel).to(dev)] = False
+    for k, v in scene.params.items():
+        same = torch.equal(edited.params[k][other], v[other]) if k in ("features_dc", "features_rest") \
+            else torch.equal(edited.params[k], v)
+        require(same, f"appearance changed {k} outside the selected rows")
+    log("edit", f"select_gaussians_by_mask under the central {mw}x{mh} at t={EDIT_T}: {len(sel)} Gaussians "
+                f"(K_idx {EDIT_K}) in {sel_ms:.1f} ms; optimize_appearance {EDIT_STEPS} steps ({EDIT_CUTS}): "
+                f"{app_ms:.3f} ms/step wall, loss {loss0:.6f} -> {loss1:.6f}, launches {launches}; every "
+                f"unselected row and every other attribute bit-identical {card}")
+    log("edit", busy_line(f"optimize_appearance, {EDIT_BUSY_STEPS} steps", lambda: inference.optimize_appearance(
+        scene, sel, target, cam, rcfg, t=EDIT_T, steps=EDIT_BUSY_STEPS, device=DEVICE), 2, EDIT_BUSY_STEPS,
+        app_ms, card))
+
+    t0 = time.perf_counter()
+    whole = inference.optimize_appearance_from_img(scene, target, cam, rcfg, t=EDIT_T, steps=EDIT_IMG_STEPS,
+                                                   device=DEVICE)
+    torch.cuda.synchronize()
+    img_ms = (time.perf_counter() - t0) * 1e3 / EDIT_IMG_STEPS
+    loss2 = mse(whole)
+    require(loss2 < loss0, f"whole-frame appearance loss did not fall: {loss0} -> {loss2}")
+    fg, bgl = inference.split_layers(scene)
+    n_fg, n_bg = int(fg.num_alive), int(bgl.num_alive)
+    require(n_fg > 0 and n_bg > 0 and n_fg + n_bg == int(scene.num_alive), f"layers {n_fg} + {n_bg}")
+    dup = inference.add_fg_copy(scene, np.asarray(EDIT_DELTA))
+    n_copy = int(dup.num_alive) - int(scene.num_alive)
+    require(n_copy == min(n_fg, scene.alive.shape[0] - int(scene.num_alive)), f"add_fg_copy wrote {n_copy}")
+    video = inference.render_video(dup, cam, rcfg, [0, 1, 2], device=DEVICE)
+    require(video["rgb"].shape == (3, H, W, 3) and np.isfinite(video["rgb"]).all(), "the copy's video")
+    log("edit", f"optimize_appearance_from_img over {int(scene.num_alive)} alive, {EDIT_IMG_STEPS} steps: "
+                f"{img_ms:.3f} ms/step wall, loss {loss0:.6f} -> {loss2:.6f}; split_layers fg {n_fg} + bg {n_bg}; "
+                f"add_fg_copy {EDIT_DELTA}: {n_copy} copies (truncated to the free slots), 3 frames rendered, "
+                f"finite {card}")
+    return rows
+
+
+def pose_phase(args, dev, card: str, scene, clip) -> None:
+    """Phase 16: pose refinement against the fixed flagship scene from
+    frames rendered at known twists, then the joint fit on phase 12's clip
+    with a checkpoint and a resume that restores the twists."""
+    import os
+    import tempfile
+
+    import torch
+
+    from splatter_a_video_tpu_torch.data import pairs
+    from splatter_a_video_tpu_torch.models import camera
+    from splatter_a_video_tpu_torch.ops import rasterize
+    from splatter_a_video_tpu_torch.train import camera_refine, fit, hooks, trainer
+    from splatter_a_video_tpu_torch.utils.pose import apply_se3_to_extrinsic
+
+    cam = camera.canonical_camera(W, H)
+    rcfg = rasterize.RasterizeConfig(width=W, height=H, max_intersections=MAX_INTERSECTIONS)
+    rng = np.random.RandomState(args.seed + 7)
+    xi_true = np.zeros((POSE_FRAMES, 6), np.float32)
+    for t in range(POSE_FRAMES):
+        v = rng.randn(3)
+        v[2] = 0.0   # an orthographic image does not see a move along z
+        w = rng.randn(3)
+        xi_true[t] = np.concatenate([v / np.linalg.norm(v), w / np.linalg.norm(w)]) * POSE_TWIST
+    extr0 = torch.as_tensor(cam.extrinsic, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        frames = torch.stack([rasterize.render_gaussians(
+            scene.get_position(float(t)), scene.get_scaling(), scene.get_rotation(float(t)), scene.get_opacity(),
+            scene.get_shs(), apply_se3_to_extrinsic(extr0, torch.from_numpy(xi_true[t]).to(dev)), rcfg,
+        ).features["rgb"] for t in range(POSE_FRAMES)])
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    xi, info = camera_refine.refine_camera_poses(scene, frames, cam.extrinsic, rcfg, num_iters=POSE_ITERS,
+                                                 lr=POSE_LR, device=DEVICE)
+    torch.cuda.synchronize()
+    it_ms = (time.perf_counter() - t0) * 1e3 / POSE_ITERS
+    launches = read_launches()
+    require(launches == {k: POSE_ITERS * POSE_FRAMES for k in launches}, f"pose launch counts {launches}")
+    # the error over the components an orthographic image sees: v_z moves no
+    # pixel (only through the small coupling in exp's V), so Adam, which
+    # normalises its gradient, walks it by up to lr a step
+    seen = [0, 1, 3, 4, 5]
+    err0, err1 = float(np.linalg.norm(xi_true[:, seen])), float(np.linalg.norm((xi - xi_true)[:, seen]))
+    full = float(np.linalg.norm(xi - xi_true))
+    require(np.isfinite(xi).all() and err1 < 0.5 * err0, f"twist error {err0:.5f} -> {err1:.5f}")
+    log("pose", f"refine_camera_poses, {POSE_FRAMES} frames at known twists (|v| = |w| = {POSE_TWIST}, v_z = 0), "
+                f"{POSE_ITERS} iterations, lr {POSE_LR}: twist error over v_x, v_y, w {err0:.5f} -> {err1:.5f} "
+                f"(with v_z: {full:.5f}; max |v_z| {np.abs(xi[:, 2]).max():.5f}), loss "
+                f"{info['loss_first']:.6f} -> {info['loss_last']:.6f}; {it_ms:.3f} ms/iteration wall "
+                f"({POSE_FRAMES} renders); launches {launches} {card}")
+    log("pose", busy_line("refine_camera_poses, 1 iteration", lambda: camera_refine.refine_camera_poses(
+        scene, frames, cam.extrinsic, rcfg, num_iters=1, lr=POSE_LR, device=DEVICE), 2, 1, it_ms, card))
+
+    fcfg, tcfg = fit_configs(args, POSE_FIT_STEPS, refine_camera=True, camera_warmup=POSE_WARMUP,
+                             log_every=POSE_FIT_STEPS // 2)
+    every = POSE_FIT_STEPS // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        state, hist = fit.fit_clip(clip, fcfg, tcfg, hooks=[hooks.CheckPointHook(every=every)], out_dir=tmp,
+                                   device=DEVICE)
+        launches = read_launches()
+        require(launches == {k: POSE_FIT_STEPS for k in launches}, f"joint fit launch counts {launches}")
+        for m in hist:
+            require(all(np.isfinite(v) for v in m.values() if isinstance(v, (int, float))), f"joint fit {m}")
+        saved = torch.load(os.path.join(tmp, "camera_refine.pt"), map_location=dev, weights_only=True)
+        xi_fit = np.load(os.path.join(tmp, "camera_xi.npy"))
+        require(saved["count"] == POSE_FIT_STEPS and np.array_equal(xi_fit, saved["xi"].cpu().numpy())
+                and np.abs(xi_fit).max() > 0, "joint fit twists")
+        os.remove(os.path.join(tmp, "camera_xi.npy"))
+        fit.fit_clip(clip, fcfg, tcfg, hooks=[hooks.CheckPointHook(every=every)], out_dir=tmp, resume=True,
+                     device=DEVICE)
+        back = torch.load(os.path.join(tmp, "camera_refine.pt"), map_location=dev, weights_only=True)
+        restored = torch.from_numpy(np.load(os.path.join(tmp, "camera_xi.npy"))).to(dev)
+        require(torch.equal(restored, saved["xi"]) and back["count"] == saved["count"]
+                and all(torch.equal(back[k], saved[k]) for k in ("xi", "mu", "nu")),
+                "the resumed twists differ from the saved ones")
+    timing = hist[-1]["timing"]
+    log("pose", f"fit_clip(refine_camera=True, camera_warmup={POSE_WARMUP}) on phase 12's clip, {POSE_FIT_STEPS} "
+                f"steps: loss {hist[0]['loss']:.5f} -> {hist[-1]['loss']:.5f}, |xi| {hist[-1]['cam_xi_norm']:.5f}, "
+                f"steady {timing['steady_ms']} ms/step wall, setup {timing['setup_s']} s; launches {launches}; "
+                f"checkpoint at {POSE_FIT_STEPS}, --resume restored the twists and their Adam state torch.equal "
+                f"{card}")
+    frames_store = trainer.FrameStore(
+        rgb=torch.from_numpy(np.stack(clip.frames)).to(dev),
+        depth=torch.from_numpy(np.stack([clip.get_loss_depth(t) for t in range(FRAMES)])).to(dev))
+    jstep = camera_refine.make_joint_train_step(tcfg, cam.extrinsic, cam_lr=fcfg.camera_lr,
+                                                cam_prior_weight=fcfg.camera_prior, frames=frames_store,
+                                                device=DEVICE)
+    cs = camera_refine.CamTrainState(state, torch.from_numpy(xi_fit).to(dev),
+                                     camera_refine.make_cam_optimizer(fcfg.camera_lr).init(
+                                         torch.from_numpy(xi_fit).to(dev)))
+    batch = pairs.batch_to_device(pairs.BatchBuilder(clip, TRACKS, seed=args.seed, slim=True).build(
+        TRAIN_T1, TRAIN_T2), dev)
+    jwall = wall_ms(lambda: jstep(cs, batch), reps=3)
+    log("pose", busy_line("joint train step of the fitted state, 3 steps alone", lambda: jstep(cs, batch), 3, 1,
+                          jwall, card))
+
+
+def atlas_phase(args, dev, card: str) -> None:
+    """Phase 17: two atlases cut from the flagship arrays, ATLAS_STEPS steps
+    of `make_atlas_train_step` at full width and a density step."""
+    import torch
+
+    from splatter_a_video_tpu_torch import convert
+    from splatter_a_video_tpu_torch.models import camera
+    from splatter_a_video_tpu_torch.train import atlas_trainer, trainer
+
+    params, aux, cfg = flagship_scene_arrays(args.seed)
+    atlases, lo = {}, 0
+    for name, n, cap in ATLAS_SPLIT:
+        p = {}
+        for k, v in params.items():
+            a = np.repeat(v[-1:], cap, axis=0)   # every slot a dead one, then the live rows
+            a[:n] = v[lo:lo + n]
+            p[k] = a
+        atlases[name] = {"params": p, "aux": {"alive": np.arange(cap) < n, "spline_knots": aux["spline_knots"]},
+                         "cfg": {**cfg, "capacity": cap}}
+        lo += n
+    model = convert.atlas_from_numpy(atlases, device=DEVICE)
+    cam = camera.canonical_camera(W, H)
+    tcfg = trainer.TrainerConfig(width=W, height=H, num_frames=FRAMES, max_intersections=MAX_INTERSECTIONS)
+    step, dstep, _ = atlas_trainer.make_atlas_train_step(tcfg, cam.extrinsic, device=DEVICE)
+    st0 = st = atlas_trainer.init_atlas_train_state(tcfg, model, seed=args.seed, device=DEVICE)
+    batch = trainer.Batch(t1=TRAIN_T1, t2=TRAIN_T2, **{
+        k: torch.from_numpy(v).to(dev) for k, v in train_batch_arrays(args.seed).items()})
+    torch.cuda.synchronize()
+    reset_launches()
+    hist, step_ms = [], []
+    for _ in range(ATLAS_STEPS):
+        t0 = time.perf_counter()
+        st, m = step(st, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        hist.append({k: float(v) for k, v in m.items()})
+    launches = read_launches()
+    require(launches == {k: ATLAS_STEPS for k in launches}, f"atlas launch counts {launches}")
+    require(all(np.isfinite(v) for m in hist for v in m.values()), "atlas metrics not finite")
+    require(hist[-1]["loss_rgb"] < hist[0]["loss_rgb"], "atlas loss_rgb did not fall")
+    require(all(int(st.opt_states[n].count) == ATLAS_STEPS for n, _, _ in ATLAS_SPLIT), "atlas Adam counts")
+    dense, infos = dstep(st)
+    for name, n, cap in ATLAS_SPLIT:
+        alive = int(dense.model.atlases[name].alive.sum())
+        require(alive == int(infos[name].num_alive), f"atlas {name}: alive {alive} != {int(infos[name].num_alive)}")
+    med = statistics.median(step_ms[1:])
+    log("atlas", f"{len(ATLAS_SPLIT)} atlases ({', '.join(f'{nm} {n} in {c}' for nm, n, c in ATLAS_SPLIT)}), "
+                 f"{ATLAS_STEPS} steps of make_atlas_train_step at {W}x{H}, C=7: loss_rgb {hist[0]['loss_rgb']:.5f} "
+                 f"-> {hist[-1]['loss_rgb']:.5f}, max {max(int(m['num_intersections']) for m in hist)} intersections; "
+                 f"{med:.3f} ms/step wall (median of steps 2-{ATLAS_STEPS}); launches {launches}; density step: "
+                 + "; ".join(f"{nm} cloned {int(infos[nm].num_cloned)}, split {int(infos[nm].num_split)}, pruned "
+                             f"{int(infos[nm].num_pruned)}, alive {int(infos[nm].num_alive)} == its mask"
+                             for nm, _, _ in ATLAS_SPLIT) + f" {card}")
+    log("atlas", busy_line("atlas step, 3 steps", lambda: step(st0, batch), 3, 1, med, card))
+
+
+def engine_phase(args, dev, card: str, cpm: float) -> dict:
+    """Phase 18: the perspective engine at EngineConfig's defaults on
+    ENGINE_VIEWS orbit views of a ground-truth cluster fed in memory;
+    returns the kernel instances of its blend."""
+    import tempfile
+
+    import torch
+
+    from splatter_a_video_tpu_torch.data import readers
+    from splatter_a_video_tpu_torch.models import camera, gaussians, legacy_render
+    from splatter_a_video_tpu_torch.ops import rasterize
+    from splatter_a_video_tpu_torch.train import engine
+
+    S = ENGINE_WH
+    rng = np.random.RandomState(args.seed + 8)
+    gt = gaussians.create_scene(
+        gaussians.SceneConfig(capacity=ENGINE_GT, num_frames=1, traj="static"),
+        rng.uniform(-0.8, 0.8, (ENGINE_GT, 3)).astype(np.float32), rng.uniform(0.1, 0.9, (ENGINE_GT, 3)),
+        init_opacity=0.8, device=DEVICE)
+    vcfg = rasterize.RasterizeConfig(width=S, height=S, ortho=False, max_intersections=MAX_INTERSECTIONS, nearest=0.2)
+    cams, imgs, n_gt = [], [], []
+    with torch.no_grad():
+        for i in range(ENGINE_VIEWS):
+            a = 2 * np.pi * i / ENGINE_VIEWS
+            p = np.array([ENGINE_ORBIT * np.sin(a), 0.3 * np.sin(2 * a), -ENGINE_ORBIT * np.cos(a)], np.float32)
+            R = camera.look_at_rotation(p, np.zeros(3))
+            c = camera.Camera(width=S, height=S, R=R, t=-R @ p)
+            out = rasterize.render_gaussians(
+                gt.get_position(0.0), gt.get_scaling(), gt.get_rotation(0.0), gt.get_opacity(), gt.get_shs(),
+                torch.from_numpy(c.extrinsic).to(dev), vcfg, intr=torch.from_numpy(c.intrinsic).to(dev),
+                bg_color=1.0, view_dir_z=False)
+            cams.append(c)
+            imgs.append(np.clip(out.features["rgb"].cpu().numpy(), 0, 1))
+            n_gt.append(int(out.num_intersections))
+    frames = readers.SceneFrames(cameras=tuple(cams), image_paths=(), backgrounds=(1.0,) * ENGINE_VIEWS,
+                                 images=tuple(imgs))
+    cfg = engine.EngineConfig(width=S, height=S, sh_degree_interval=ENGINE_SH_INTERVAL)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        eng = engine.Engine(cfg, frames, out_dir=tmp, seed=args.seed, device=DEVICE)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+    require(int(eng.state.scene.num_alive) == min(cfg.random_init_points, cfg.capacity), "engine init")
+    rc = eng.cfg.raster_cfg()
+    with torch.no_grad():
+        zeros = torch.zeros((cfg.capacity, 2), device=dev)
+        pr = engine.project_persp_for_training(eng.state.scene, rc, eng.train_batches[0], 0, zeros, eng.bg)
+        rows = blend_instance("engine perspective", pr, rc, cpm, args.seed + 10, card)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    eng.train(num_steps=1)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    loss_first, nint_first = eng.metrics["loss"], int(eng.metrics["num_intersections"])
+    t0 = time.perf_counter()
+    m = eng.train(num_steps=ENGINE_STEPS - 1)
+    torch.cuda.synchronize()
+    steady = (time.perf_counter() - t0) * 1e3 / (ENGINE_STEPS - 1)
+    launches = read_launches()
+    require(launches == {k: ENGINE_STEPS for k in launches}, f"engine launch counts {launches}")
+    require(all(np.isfinite(v) for v in m.values()) and int(eng.state.step) == ENGINE_STEPS, f"engine {m}")
+    require(eng.active_sh_degree(ENGINE_STEPS - 1) == (ENGINE_STEPS - 1) // ENGINE_SH_INTERVAL, "SH degree")
+    eng.state, info = eng._density_step(eng.state)
+    require(int(info.num_alive) == int(eng.state.scene.alive.sum()), "engine density: alive != num_alive")
+    log("engine", f"EngineConfig defaults at {S}x{S} (capacity {cfg.capacity}, {cfg.random_init_points} random "
+                  f"init points, budget {cfg.max_intersections}, near {cfg.nearest}), {ENGINE_VIEWS} orbit views of a "
+                  f"{ENGINE_GT}-Gaussian cluster fed in memory (their renders {min(n_gt)}-{max(n_gt)} intersections); "
+                  f"setup {setup_s:.2f} s; {ENGINE_STEPS} steps, SH interval {ENGINE_SH_INTERVAL}: loss "
+                  f"{loss_first:.5f} (step 1) -> {m['loss']:.5f} (step {ENGINE_STEPS}), psnr {m['psnr']:.3f}, "
+                  f"intersections {nint_first} -> {int(m['num_intersections'])} of {cfg.max_intersections}"
+                  f"{' (saturated)' if int(m['num_intersections']) > cfg.max_intersections else ''}; first step "
+                  f"{first_ms:.1f} ms, then {steady:.3f} ms/step wall; launches {launches}; density step: cloned "
+                  f"{int(info.num_cloned)}, split {int(info.num_split)}, pruned {int(info.num_pruned)}, alive "
+                  f"{int(info.num_alive)} == its mask {card}")
+    batch = eng.train_batches[0]
+    log("engine", busy_line("engine step, 3 steps", lambda: eng._train_step(eng.state, batch, 1), 3, 1,
+                            wall_ms(lambda: eng._train_step(eng.state, batch, 1), reps=3), card))
+    c = cams[0]
+    wvt = np.eye(4, dtype=np.float32)
+    wvt[:3, :4] = c.extrinsic
+    sc = eng.state.scene
+    r = legacy_render.GaussianSplattingRender()
+    with torch.no_grad():
+        out = r.render_iter(FovX=c.fovx, FovY=camera.focal2fov(c.focal_y, S), height=S, width=S,
+                            world_view_transform=torch.from_numpy(wvt.T.copy()).to(dev), full_proj_transform=None,
+                            camera_center=torch.from_numpy(c.camera_center).to(dev), position=sc.get_position(0.0),
+                            opacity=sc.get_opacity(), scaling=sc.get_scaling(), rotation=sc.get_rotation(0.0),
+                            shs=sc.get_shs())
+    require(out["rgb"].shape == (S, S, 3) and bool(torch.isfinite(out["rgb"]).all()), "render_iter")
+    log("engine", f"GaussianSplattingRender.render_iter at {S}x{S}: finite, {int(out['visibility'].sum())} visible "
+                  f"{card}")
+    return rows
 
 
 def main() -> int:
@@ -761,14 +1263,11 @@ def main() -> int:
         busy_ms, top, ours = device_profile(frame, reps=5)
     N = CAPACITY
     applied = int(k1_out[2].sum())
-    k1_bytes = 4 * nint + 4 * (tgx * tgy + 1) + N * (8 + 12 + 4 + 4 * C) + 4 * C + H * W * (C + 2) * 4
-    k1_ops = 256 * nint * 15 + applied * 2 * C
-    k1_by = "operations" if k1_ops / FP32_FLOPS_PER_S > k1_bytes / HBM_BYTES_PER_S else "bytes"
+    k1_bound, k1_by, k1_bytes, k1_ops = blend_cost("blend_forward", nint, tgx * tgy + 1, N, C, H * W, applied)
     # K2 must read every Gaussian's tile count, and offs, rect_min,
     # rect_max.x and depth of those with tiles; it writes every slot once
     k2_live = int((tiles > 0).sum())
     k2_bytes = 4 * N + k2_live * (4 + 8 + 4 + 4) + MAX_INTERSECTIONS * (8 + 4)
-    k1_bound = max(k1_bytes / HBM_BYTES_PER_S, k1_ops / FP32_FLOPS_PER_S) * 1e3
     k2_bound = k2_bytes / HBM_BYTES_PER_S * 1e3
     log("times", f"render_frame {frame_ms:.3f} ms/frame (wall): projection {project_ms:.3f} ms, "
                  f"binning {bin_ms:.3f} ms (wall, each with a synchronize) {card}")
@@ -968,11 +1467,8 @@ def main() -> int:
              "reduce_gaussians": rg.kernel_attributes("reduce_gaussians", R)}
     k1_train_attrs = rg.kernel_attributes("blend_forward", Ct, (16, 16))
     t_applied = int(tfwd[2].sum())
-    k3_bytes = (4 * t_nint + 4 * (tgx * tgy + 1) + N * (8 + 12 + 4 + 4 * Ct) + 8 * Ct
-                + H * W * (2 * Ct + 1) * 4 + t_nint * R * 4)
-    k3_ops = 256 * t_nint * 15 + t_applied * (40 + 5 * Ct + R)
-    k3_by = "operations" if k3_ops / FP32_FLOPS_PER_S > k3_bytes / HBM_BYTES_PER_S else "bytes"
-    k3_bound = max(k3_bytes / HBM_BYTES_PER_S, k3_ops / FP32_FLOPS_PER_S) * 1e3
+    k3_bound, k3_by, k3_bytes, k3_ops = blend_cost("blend_backward", t_nint, tgx * tgy + 1, N, Ct, H * W,
+                                                   t_applied)
     k4_bytes = t_nint * (R * 4 + 8) + N * (8 + R * 4)
     k4_bound = max(k4_bytes / HBM_BYTES_PER_S, t_nint * R / FP32_FLOPS_PER_S) * 1e3
     log("times", f"train step {train_ms:.3f} ms wall (median of steps 2-{TRAIN_STEPS}; all: "
@@ -1004,9 +1500,15 @@ def main() -> int:
                  f"K2 expand_intersections: {resources(attrs['expand_intersections'])} {card}")
 
     # ---- 12-14. the fit at full width, the mini-fit bands, the CLI -----------
-    fit_launches = fit_phase(args, dev, card)
+    fit_launches, fit_clip_data = fit_phase(args, dev, card)
     mini_fit_phase(card)
     cli_phase(card)
+
+    # ---- 15-18. editing, camera refinement, atlases, the perspective engine ---
+    instances = merge_rows(edit_phase(args, dev, card, scene, cpm))
+    pose_phase(args, dev, card, scene, fit_clip_data)
+    atlas_phase(args, dev, card)
+    instances = merge_rows(instances, engine_phase(args, dev, card, cpm))
 
     kernels = [
         {"name": "blend_forward", "route": "cuda",
@@ -1042,6 +1544,8 @@ def main() -> int:
         # and the ten train steps keep their own counts beside it
         k["render_launches"], k["step_launches"] = launches[k["name"]], train_launches[k["name"]]
         k["launches"] = fit_launches[k["name"]]
+        # the blend instances of phases 15 and 18, each held torch.equal
+        k["instances"] = instances.get(k["name"], [])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -11,6 +11,13 @@ A train state adds the optimizer (optax keeps one Adam state per
 attribute: pass its shared `count` and the `mu` / `nu` dicts), the
 `DensifyState` arrays and the PRNG key (`np.asarray(state.key)`: the port
 draws with its copy of JAX's generator, `train/prng.py`).
+
+Camera refinement's twists come with their optax Adam state (pass the
+`ScaleByAdamState`'s count, mu and nu): `cam_state_from_numpy`. A
+multi-atlas model is a dict of scenes (`atlas_from_numpy`), and its train
+state a dict of per-atlas scene, optimizer and statistics arrays
+(`atlas_train_state_from_numpy`). The perspective engine's state has a
+train state's fields (`engine_state_from_numpy`).
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .models.atlas import AtlasModel
 from .models.gaussians import GaussianScene, SceneConfig
 from .train import density as _density
 from .train import optim as _optim
@@ -167,3 +175,51 @@ def train_state_to_numpy(state: "_trainer.TrainState") -> dict:
         step=state.step,
         key=state.key.numpy().astype(np.uint32),
     )
+
+
+def cam_state_from_numpy(xi: np.ndarray, opt: dict, device="cuda"):
+    """(twists [T, 6], their `AdamState`) on `device` from numpy: opt =
+    {"count": int, "mu": array, "nu": array}, the twists' optax Adam state
+    (its schedule's count equals the Adam count)."""
+    dev = resolve_device(device)
+    xi = np.asarray(xi)
+    layout = {"xi": (tuple(xi.shape), np.dtype(np.float32))}
+    _check("xi", {"xi": xi}, layout)
+    for kind in ("mu", "nu"):
+        _check(f"opt[{kind!r}]", {"xi": np.asarray(opt[kind])}, layout)
+    tensor = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return tensor(xi), _optim.AdamState(count=int(opt["count"]), mu={"xi": tensor(opt["mu"])},
+                                        nu={"xi": tensor(opt["nu"])})
+
+
+def atlas_from_numpy(atlases: Dict[str, dict], device="cuda") -> AtlasModel:
+    """An `AtlasModel` from {name: {"params", "aux", "cfg"}} (each as for
+    `scene_from_numpy`), in the given order."""
+    return AtlasModel(atlases={n: scene_from_numpy(a["params"], a["aux"], a["cfg"], device=device)
+                               for n, a in atlases.items()})
+
+
+def atlas_train_state_from_numpy(atlases: Dict[str, dict], step: int, key, device="cuda"):
+    """An `atlas_trainer.AtlasTrainState` from {name: {"params", "aux",
+    "cfg", "opt", "densify"}} (each atlas as for `train_state_from_numpy`),
+    the shared step count and the key's two uint32 words."""
+    from .train.atlas_trainer import AtlasTrainState
+
+    states = {n: train_state_from_numpy(a["params"], a["aux"], a["cfg"], a["opt"], a["densify"], step,
+                                        device=device, key=key)
+              for n, a in atlases.items()}
+    return AtlasTrainState(
+        model=AtlasModel(atlases={n: st.scene for n, st in states.items()}),
+        opt_states={n: st.opt_state for n, st in states.items()},
+        densify_states={n: st.densify_state for n, st in states.items()},
+        step=int(step),
+        key=torch.as_tensor(np.asarray(key, np.int64)).reshape(2),
+    )
+
+
+def engine_state_from_numpy(params, aux, cfg, opt: dict, densify, step: int, key, device="cuda"):
+    """A `train.engine.EngineState` from numpy, with the arguments of
+    `train_state_from_numpy` (a static scene)."""
+    from .train.engine import EngineState
+
+    return EngineState(*train_state_from_numpy(params, aux, cfg, opt, densify, step, device=device, key=key))

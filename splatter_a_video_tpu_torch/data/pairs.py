@@ -9,9 +9,10 @@ of `splatter_a_video_tpu/data/pairs.py`).
     `batch_to_device` moves one to the card in the consuming thread.
 
 The samplers' and the builder's `RandomState`s are drawn in the JAX
-package's order, so both packages see the same pairs and track rows. The
-track rows come from the numpy path; the JAX package's mmap C++ loader for
-on-disk clips (`data/native_loader.py`) has no counterpart here yet.
+package's order, so both packages see the same pairs and track rows. For
+an on-disk clip both packages draw the rows in the native loader
+(`data/native_loader.py`, `native/sav_loader.cpp`) on the same per-step
+seed; in-memory clips, or a failed build, take the numpy path in both.
 """
 
 from __future__ import annotations
@@ -68,10 +69,15 @@ class PairSampler:
 
 
 class BatchBuilder:
-    """Assemble fixed-shape numpy `Batch`es from a `VideoFlowData` clip."""
+    """Assemble fixed-shape numpy `Batch`es from a `VideoFlowData` clip.
+
+    When the clip's tracks live on disk, the rows are drawn by the native
+    C++ loader on a per-step seed from `rng` (the JAX package's condition
+    and draw order); in-memory clips use the numpy path.
+    """
 
     def __init__(self, data: VideoFlowData, num_track_samples: int = 4096, seed: int = 0,
-                 slim: bool = False):
+                 use_native: bool = True, slim: bool = False):
         """slim=True leaves out the per-frame images (rgb1 / depth1 / mask1 /
         dino1): the train step reads them from its `trainer.FrameStore`."""
         self.data = data
@@ -80,6 +86,14 @@ class BatchBuilder:
         self.seed = seed
         self.rng = np.random.RandomState(seed)
         self._query_cache = {}   # query pixels of each t1 (on the pixel grid)
+        self._native = None
+        if use_native and data.tracks_dir and data.tracks is None:
+            from .native_loader import NativeTrackLoader
+
+            try:
+                self._native = NativeTrackLoader(data.tracks_dir, data.frame_names)
+            except RuntimeError:   # no g++ or a failed build: the numpy path, as in JAX
+                self._native = None
 
     def _query_pixels(self, t1: int) -> np.ndarray:
         if t1 not in self._query_cache:
@@ -88,18 +102,21 @@ class BatchBuilder:
 
     def build(self, t1: int, t2: int) -> Batch:
         P = self.P
-        qp_all = self._query_pixels(t1)                           # [N, 2]
-        tt_all = self.data.load_target_tracks(t1, [t2])[:, 0, :]  # [N, 4]
-        N = len(qp_all)
-        if N >= P:
-            sel = self.rng.choice(N, P, replace=False)
-            qp, tt = qp_all[sel], tt_all[sel]
-            valid = np.ones((P,), bool)
+        if self._native is not None:
+            qp, tt, valid = self._native.build(t1, t2, P, int(self.rng.randint(0, 2**31)))
         else:
-            pad = P - N
-            qp = np.concatenate([qp_all, np.zeros((pad, 2), np.float32)])
-            tt = np.concatenate([tt_all, np.zeros((pad, 4), np.float32)])
-            valid = np.concatenate([np.ones((N,), bool), np.zeros((pad,), bool)])
+            qp_all = self._query_pixels(t1)                           # [N, 2]
+            tt_all = self.data.load_target_tracks(t1, [t2])[:, 0, :]  # [N, 4]
+            N = len(qp_all)
+            if N >= P:
+                sel = self.rng.choice(N, P, replace=False)
+                qp, tt = qp_all[sel], tt_all[sel]
+                valid = np.ones((P,), bool)
+            else:
+                pad = P - N
+                qp = np.concatenate([qp_all, np.zeros((pad, 2), np.float32)])
+                tt = np.concatenate([tt_all, np.zeros((pad, 4), np.float32)])
+                valid = np.concatenate([np.ones((N,), bool), np.zeros((pad,), bool)])
 
         if self.slim:
             return Batch(t1=int(t1), t2=int(t2), query_px=qp.astype(np.float32),

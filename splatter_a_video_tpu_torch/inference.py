@@ -1,15 +1,15 @@
-"""Rendering and tracking with a trained video-Gaussian scene (counterpart
-of the rendering and tracking part of `splatter_a_video_tpu/inference.py`):
-video, novel views, stereo, point correspondences and Gaussian
-trajectories.
+"""Inference and editing over a trained video-Gaussian scene (counterpart
+of `splatter_a_video_tpu/inference.py`): video, novel views, stereo,
+point correspondences, Gaussian trajectories, pixel -> Gaussian
+selection, appearance optimisation, fg/bg layers and object copies.
 
 Entry points run on `device="cuda"` unless told otherwise and raise when
-no GPU is present rather than running on the CPU. Selection, appearance
-optimisation and layer editing come in a later slice.
+no GPU is present rather than running on the CPU.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -20,6 +20,7 @@ from .device import resolve_device
 from .models import camera as _camera
 from .models.gaussians import GaussianScene
 from .ops import rasterize as _raster
+from .train import optim as _optim
 from .train.losses import denormalize_coords
 
 
@@ -213,3 +214,146 @@ def gaussian_trajectories(
     sel = rng.choice(alive_idx, min(sample, len(alive_idx)), replace=False)
     sel_t = torch.from_numpy(sel).to(dev)
     return np.stack([scene.get_position(float(t))[sel_t].cpu().numpy() for t in times], axis=1)
+
+
+# --------------------------------------------------------------------------
+# editing / layers
+# --------------------------------------------------------------------------
+
+
+def select_gaussians_by_mask(
+    scene: GaussianScene,
+    mask: np.ndarray,
+    cam: _camera.Camera,
+    rcfg: _raster.RasterizeConfig,
+    t: float = 0.0,
+    K_idx: int = 10,
+    device="cuda",
+) -> np.ndarray:
+    """Pixel -> Gaussian lookup: the unique ids among the first `K_idx`
+    contributors (K1's first-K ids) of the pixels where `mask` > 0."""
+    out = render_frame(scene, float(t), cam.extrinsic, dataclasses.replace(rcfg, K_idx=K_idx),
+                       device=device)
+    sel = np.unique(out.gs_idx.cpu().numpy()[np.asarray(mask) > 0])
+    return sel[sel >= 0]
+
+
+def optimize_appearance(
+    scene: GaussianScene,
+    selected: np.ndarray,
+    target_img: np.ndarray,
+    cam: _camera.Camera,
+    rcfg: _raster.RasterizeConfig,
+    t: float = 0.0,
+    steps: int = 1000,
+    lr: float = 2.5e-3,
+    loss_tol: float = 1e-4,
+    device="cuda",
+) -> GaussianScene:
+    """Re-optimise the SH rows (`features_dc`, `features_rest`) of the
+    `selected` Gaussians against an edited image, geometry frozen: optax's
+    Adam(lr) (eps 1e-8) on those rows only, MSE of the rendered rgb to
+    `target_img` [H, W, 3], stopping after the first step whose loss is
+    below `loss_tol`. Each step renders through K2 + K1 and differentiates
+    through K3 + K4.
+
+    The rows enter the scene by `index_copy` on unique ids, so their
+    gradient is a gather, free of float atomics. Returns the edited scene; every other row is the input's bit for bit.
+    """
+    dev = resolve_device(device)
+    scene = scene.to(dev)
+    extr = torch.as_tensor(cam.extrinsic, dtype=torch.float32, device=dev)
+    target = torch.as_tensor(np.asarray(target_img, np.float32), device=dev)
+    sel = torch.as_tensor(np.asarray(selected), dtype=torch.int64, device=dev)
+    names = ("features_dc", "features_rest")
+    cfg = _optim.OptimConfig(eps=1e-8, lrs=tuple((n, lr) for n in names), schedules=())
+    rows = {n: scene.params[n][sel] for n in names}
+    state = _optim.adam_init(rows)
+
+    def edited(rows):
+        params = dict(scene.params)
+        for n in names:
+            params[n] = params[n].index_copy(0, sel, rows[n])
+        return dataclasses.replace(scene, params=params)
+
+    for _ in range(steps):
+        leaves = {n: v.detach().requires_grad_(True) for n, v in rows.items()}
+        inp, _ = _scene_inputs(edited(leaves), float(t), ())
+        out = _raster.render_gaussians(
+            inp["position"], inp["scaling"], inp["rotation"], inp["opacity"],
+            inp["shs"], extr, rcfg,
+        )
+        loss = torch.mean((out.features["rgb"] - target) ** 2)
+        grads = dict(zip(names, torch.autograd.grad(loss, [leaves[n] for n in names])))
+        rows, state = _optim.adam_update(cfg, rows, grads, state)
+        if float(loss.detach()) < loss_tol:
+            break
+    with torch.no_grad():
+        return edited(rows)
+
+
+def optimize_appearance_from_img(
+    scene: GaussianScene,
+    target_img: np.ndarray,
+    cam: _camera.Camera,
+    rcfg: _raster.RasterizeConfig,
+    t: float = 0.0,
+    steps: int = 1000,
+    lr: float = 2.5e-3,
+    loss_tol: float = 1e-4,
+    device="cuda",
+) -> GaussianScene:
+    """Whole-frame appearance transfer: `optimize_appearance` with every
+    alive Gaussian selected."""
+    selected = np.nonzero(scene.alive.cpu().numpy())[0]
+    return optimize_appearance(scene, selected, target_img, cam, rcfg, t=t, steps=steps, lr=lr,
+                               loss_tol=loss_tol, device=device)
+
+
+def _fg_mask(scene: GaussianScene, threshold: float) -> Tuple[np.ndarray, np.ndarray]:
+    m = torch.sigmoid(scene.params["mask_attribute"][:, 0]).cpu().numpy()
+    return m > threshold, scene.alive.cpu().numpy()
+
+
+def split_layers(scene: GaussianScene, threshold: float = 0.5):
+    """fg / bg layers by the learned mask attribute: (fg_scene, bg_scene),
+    each with the other layer's alive slots cleared."""
+    fg, alive = _fg_mask(scene, threshold)
+
+    def with_alive(mask):
+        aux = dict(scene.aux)
+        aux["alive"] = torch.from_numpy(mask).to(scene.device)
+        return dataclasses.replace(scene, aux=aux)
+
+    return with_alive(fg & alive), with_alive(~fg & alive)
+
+
+def add_fg_copy(
+    scene: GaussianScene,
+    delta_pos: np.ndarray,
+    scale: float = 1.0,
+    threshold: float = 0.5,
+) -> GaussianScene:
+    """Duplicate the fg layer into free slots (truncated to the free slots
+    there are), its positions scaled about their centroid and moved by
+    `delta_pos`. Computed in numpy in the JAX package's order."""
+    fg, alive = _fg_mask(scene, threshold)
+    fg_idx = np.nonzero(fg & alive)[0]
+    free_idx = np.nonzero(~alive)[0]
+    n = min(len(fg_idx), len(free_idx))
+    fg_idx, free_idx = fg_idx[:n], free_idx[:n]
+
+    params = {}
+    for k, v in scene.params.items():
+        v = v.cpu().numpy().copy()
+        src = v[fg_idx]
+        if k == "position":
+            c = src.mean(axis=0, keepdims=True)
+            src = (src - c) * scale + c + np.asarray(delta_pos, np.float32)
+        v[free_idx] = src
+        params[k] = torch.from_numpy(v).to(scene.device)
+    new_alive = alive.copy()
+    new_alive[free_idx] = True
+    aux = dict(scene.aux)
+    aux["alive"] = torch.from_numpy(new_alive).to(scene.device)
+    return dataclasses.replace(scene, params=params, aux=aux)

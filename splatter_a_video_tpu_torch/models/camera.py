@@ -107,6 +107,21 @@ def orbit_cameras(
     return tuple(cams)
 
 
+def spiral_path(
+    base: Camera, num: int, radius: float = 0.1, zrad: float = 0.05,
+    at: Tuple[float, float, float] = (0.0, 0.0, 1.0),
+) -> Tuple[Camera, ...]:
+    """Spiral orbit: an xy circle with a z oscillation, looking at `at`."""
+    at = np.asarray(at, np.float32)
+    cams = []
+    for i in range(num):
+        ang = 2 * math.pi * i / max(num, 1)
+        pos = np.array([radius * math.cos(ang), radius * math.sin(ang), zrad * math.sin(2 * ang)], np.float32)
+        R = look_at_rotation(pos, at)
+        cams.append(base.with_pose(R, -R @ pos))
+    return tuple(cams)
+
+
 def stereo_cameras(base: Camera, baseline: float = 0.06,
                    at: Tuple[float, float, float] = (0.0, 0.0, 1.0)) -> Tuple[Camera, Camera]:
     """Left/right eye pair for anaglyph stereo."""

@@ -38,6 +38,33 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     )
 
 
+def rotmat_to_quat(R: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Rotation matrix -> unit quaternion (w,x,y,z). [..., 3, 3] -> [..., 4].
+
+    Shepperd's construction without branches, as in the JAX package: all
+    four candidates are formed and the best-conditioned one is selected.
+    """
+    m = R
+    t = m[..., 0, 0] + m[..., 1, 1] + m[..., 2, 2]
+    floor = lambda x: torch.sqrt(torch.clamp_min(x, eps)) * 2.0
+    s0 = floor(t + 1.0)
+    c0 = torch.stack([0.25 * s0, (m[..., 2, 1] - m[..., 1, 2]) / s0,
+                      (m[..., 0, 2] - m[..., 2, 0]) / s0, (m[..., 1, 0] - m[..., 0, 1]) / s0], dim=-1)
+    s1 = floor(1.0 + m[..., 0, 0] - m[..., 1, 1] - m[..., 2, 2])
+    c1 = torch.stack([(m[..., 2, 1] - m[..., 1, 2]) / s1, 0.25 * s1,
+                      (m[..., 0, 1] + m[..., 1, 0]) / s1, (m[..., 0, 2] + m[..., 2, 0]) / s1], dim=-1)
+    s2 = floor(1.0 - m[..., 0, 0] + m[..., 1, 1] - m[..., 2, 2])
+    c2 = torch.stack([(m[..., 0, 2] - m[..., 2, 0]) / s2, (m[..., 0, 1] + m[..., 1, 0]) / s2,
+                      0.25 * s2, (m[..., 1, 2] + m[..., 2, 1]) / s2], dim=-1)
+    s3 = floor(1.0 - m[..., 0, 0] - m[..., 1, 1] + m[..., 2, 2])
+    c3 = torch.stack([(m[..., 1, 0] - m[..., 0, 1]) / s3, (m[..., 0, 2] + m[..., 2, 0]) / s3,
+                      (m[..., 1, 2] + m[..., 2, 1]) / s3, 0.25 * s3], dim=-1)
+    # argmax takes the first of equal maxima, as jnp.argmax does
+    best = torch.argmax(torch.stack([t, m[..., 0, 0], m[..., 1, 1], m[..., 2, 2]], dim=-1), dim=-1)[..., None]
+    out = torch.where(best == 0, c0, torch.where(best == 1, c1, torch.where(best == 2, c2, c3)))
+    return quat_normalize(out)
+
+
 def build_cov3d(scaling: torch.Tensor, rotation: torch.Tensor, visible=None) -> torch.Tensor:
     """3D covariance 6-vector from scale [N,3] + quaternion [N,4] (any norm).
 

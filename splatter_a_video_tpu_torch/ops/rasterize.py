@@ -130,7 +130,7 @@ class Projected(NamedTuple):
 def render_gaussians(
     position, scaling, rotation, opacity, shs, extr, cfg: RasterizeConfig,
     intr=None, extra_features: Optional[Dict[str, torch.Tensor]] = None,
-    bg_color: float = 1.0, abs_sink: Optional[torch.Tensor] = None,
+    bg_color: float = 1.0, abs_sink: Optional[torch.Tensor] = None, view_dir_z: bool = True,
 ) -> RenderOutput:
     """Render activated 3D Gaussians.
 
@@ -138,23 +138,35 @@ def render_gaussians(
     (activated), shs [N,K,3]; extr [3,4] world->camera; intr (fx,fy,cx,cy)
     for the perspective path. `extra_features` blend with bg 0 and detached
     opacity; a "depth" channel (bg 1) is always rendered. SH uses the fixed
-    +z view direction (the JAX package's default); the EWA rect is
-    opacity-aware. `abs_sink` as for `rasterize`.
+    +z view direction (the JAX package's default), or with `view_dir_z`
+    False the direction from the camera centre to each Gaussian; the EWA
+    rect is opacity-aware. `abs_sink` as for `rasterize`.
     """
     return rasterize(*project_gaussians(
         position, scaling, rotation, opacity, shs, extr, cfg, intr,
-        extra_features, bg_color,
+        extra_features, bg_color, view_dir_z,
     ), cfg, abs_sink=abs_sink)
+
+
+def camera_view_dirs(position: torch.Tensor, extr: torch.Tensor) -> torch.Tensor:
+    """[N, 3] unit directions from the camera centre -R^T t to each point
+    (norms floored at 1e-8)."""
+    cam_center = -extr[:3, :3].T @ extr[:3, 3]
+    d = position - cam_center
+    return d / torch.clamp_min(torch.linalg.vector_norm(d, dim=-1, keepdim=True), 1e-8)
 
 
 def project_gaussians(
     position, scaling, rotation, opacity, shs, extr, cfg: RasterizeConfig,
     intr=None, extra_features: Optional[Dict[str, torch.Tensor]] = None,
-    bg_color: float = 1.0,
+    bg_color: float = 1.0, view_dir_z: bool = True,
 ) -> Projected:
     """Everything `render_gaussians` does before binning and blending."""
     N = position.shape[0]
-    dirs = torch.cat([position.new_zeros((N, 2)), position.new_ones((N, 1))], dim=1)
+    if view_dir_z:
+        dirs = torch.cat([position.new_zeros((N, 2)), position.new_ones((N, 1))], dim=1)
+    else:
+        dirs = camera_view_dirs(position, extr)
 
     if cfg.ortho:
         uv, depth = _projection.project_ortho(

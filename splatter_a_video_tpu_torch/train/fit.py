@@ -8,9 +8,11 @@ track batch (pinned, non-blocking). The host reads device values only
 where the JAX package reads them: at the log and hook cadences, at density
 events and at error-map resampling; no other step waits for the card.
 
-Not ported yet: data-parallel training (`distributed=True`, ROADMAP A.16)
-and joint camera refinement (`refine_camera=True`, ROADMAP A.15); both
-raise `NotImplementedError`.
+`refine_camera=True` trains per-frame camera twists with the scene
+(`camera_refine.make_joint_train_step`); the twists and their Adam state
+are saved to `out_dir/camera_refine.pt` at every log and hook cadence and
+restored with `resume`. Not ported yet: data-parallel training
+(`distributed=True`, ROADMAP A.16), which raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from ..device import resolve_device
 from ..models import camera as _camera
 from ..models.gaussians import GaussianScene, SceneConfig, create_scene
 from . import losses as _losses
+from . import optim as _optim
 from . import trainer as _trainer
 
 
@@ -69,11 +72,14 @@ class FitConfig:
     # steps, with the four val hook sites (0 = off)
     val_every: int = 0
     val_frames: int = 4
-    refine_camera: bool = False              # not ported yet (ROADMAP A.15)
+    # joint scene + per-frame camera twists (`camera_refine`); the twists
+    # end in out_dir/camera_xi.npy
+    refine_camera: bool = False
     camera_lr: float = 1e-4
-    camera_prior: float = 1e-2
+    camera_prior: float = 1e-2               # L2 prior on the twists (gauge)
+    # scene frozen and camera lr x10 for the first K steps
     camera_warmup: int = 0
-    camera_init_xi: Optional[np.ndarray] = None
+    camera_init_xi: Optional[np.ndarray] = None   # initial twists [T, 6]
 
 
 def _depth_topup_points(data: VideoFlowData, need: int,
@@ -226,6 +232,27 @@ def _read_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
     return dict(zip(names, vals))
 
 
+def _save_cam_refine(cs: Dict, out_dir: str) -> None:
+    """The camera twists and their Adam state beside the checkpoints (the
+    checkpoint holds only the base TrainState): without them a resumed
+    run would restart the twists at 0 against a scene that has absorbed
+    the refined poses."""
+    opt = cs["opt"]
+    tmp = os.path.join(out_dir, "camera_refine.pt.tmp")
+    torch.save({"xi": cs["xi"], "count": opt.count, "mu": opt.mu["xi"], "nu": opt.nu["xi"]}, tmp)
+    os.replace(tmp, os.path.join(out_dir, "camera_refine.pt"))
+
+
+def _restore_cam_refine(cs: Dict, out_dir: str, dev: torch.device) -> bool:
+    path = os.path.join(out_dir, "camera_refine.pt")
+    if not os.path.exists(path):
+        return False
+    d = torch.load(path, map_location=dev, weights_only=True)
+    cs["xi"] = d["xi"]
+    cs["opt"] = _optim.AdamState(count=int(d["count"]), mu={"xi": d["mu"]}, nu={"xi": d["nu"]})
+    return True
+
+
 def fit_clip(
     data: VideoFlowData,
     fit_cfg: Optional[FitConfig] = None,
@@ -247,8 +274,6 @@ def fit_clip(
     """
     if fit_cfg is not None and fit_cfg.distributed:
         raise NotImplementedError("distributed=True: data-parallel training is not ported yet (ROADMAP A.16)")
-    if fit_cfg is not None and fit_cfg.refine_camera:
-        raise NotImplementedError("refine_camera=True: camera refinement is not ported yet (ROADMAP A.15)")
     dev = resolve_device(device)
     t_fit0 = time.time()
     fit_cfg = fit_cfg or FitConfig()
@@ -278,6 +303,26 @@ def fit_clip(
     )
     train_step, density_step, opacity_reset = _trainer.make_train_step(
         trainer_cfg, cam.extrinsic, frames=frames, device=dev)
+    cam_refine_state = None
+    if fit_cfg.refine_camera:
+        from . import camera_refine as _cam_refine
+
+        # the camera lr decays to 0 over the steps after the warm-up, which
+        # bounds the gauge drift of the twists (see camera_refine)
+        cam_decay = max(fit_cfg.num_iters - fit_cfg.camera_warmup, 1)
+        joint_step = _cam_refine.make_joint_train_step(
+            trainer_cfg, cam.extrinsic, cam_lr=fit_cfg.camera_lr, cam_prior_weight=fit_cfg.camera_prior,
+            cam_warmup_iters=fit_cfg.camera_warmup, cam_decay_steps=cam_decay, frames=frames, device=dev)
+        xi0 = (torch.as_tensor(np.asarray(fit_cfg.camera_init_xi), dtype=torch.float32, device=dev)
+               if fit_cfg.camera_init_xi is not None
+               else torch.zeros((trainer_cfg.num_frames, 6), dtype=torch.float32, device=dev))
+        cam_refine_state = {"xi": xi0, "opt": _cam_refine.make_cam_optimizer(
+            fit_cfg.camera_lr, fit_cfg.camera_warmup, decay_steps=cam_decay).init(xi0)}
+
+        def train_step(state, batch, _cs=cam_refine_state):
+            cs, metrics = joint_step(_cam_refine.CamTrainState(state, _cs["xi"], _cs["opt"]), batch)
+            _cs["xi"], _cs["opt"] = cs.cam_xi, cs.cam_opt_state
+            return cs.base, {**metrics, "cam_xi_norm": torch.linalg.vector_norm(cs.cam_xi)}
 
     from .hooks import HookContext, run_hooks
 
@@ -297,6 +342,8 @@ def fit_clip(
             print(f"resumed from {out_dir} at step {start_step}", flush=True)
             ctx.state = state
             ctx.step = start_step
+            if cam_refine_state is not None and _restore_cam_refine(cam_refine_state, out_dir, dev):
+                print("resumed camera twists from camera_refine.pt", flush=True)
             run_hooks(hooks, "after_load_checkpoint", ctx)
 
     ctx.state = state
@@ -404,6 +451,10 @@ def fit_clip(
             ctx.step = step
             ctx.metrics = m
             ctx.state = state
+            if cam_refine_state is not None:
+                ctx.camera_xi = cam_refine_state["xi"].cpu().numpy()
+                if out_dir is not None:
+                    _save_cam_refine(cam_refine_state, out_dir)
             if render_panels is not None and image_every and step % image_every == 0:
                 ctx.images = render_panels(state.scene, step % data.num_frames)
             run_hooks(hooks, "after_train_iter", ctx)
@@ -434,6 +485,10 @@ def fit_clip(
             history[-1]["densify_events"] = densify_events
     ctx.step = int(state.step)
     ctx.state = state
+    if cam_refine_state is not None:
+        ctx.camera_xi = cam_refine_state["xi"].cpu().numpy()
+        if out_dir is not None:
+            np.save(os.path.join(out_dir, "camera_xi.npy"), ctx.camera_xi)
     run_hooks(hooks, "after_train", ctx)
     run_hooks(hooks, "after_run", ctx)
     return state, history

@@ -109,8 +109,11 @@ def adam_init(params: Dict[str, torch.Tensor]) -> AdamState:
 
 @torch.no_grad()
 def adam_update(cfg: OptimConfig, params: Dict[str, torch.Tensor],
-                grads: Dict[str, torch.Tensor], state: AdamState):
-    """One Adam step over every attribute: (new params, new state)."""
+                grads: Dict[str, torch.Tensor], state: AdamState,
+                lr: Optional[torch.Tensor] = None):
+    """One Adam step over every attribute: (new params, new state). `lr`,
+    if given, is every attribute's learning rate for this update in place
+    of `learning_rate(cfg, ...)` (an optax schedule read at `state.count`)."""
     count = state.count + 1
     dev = next(iter(params.values())).device
     bc1 = (1.0 - torch.tensor(cfg.b1, dtype=torch.float32) ** count).to(dev)
@@ -122,7 +125,7 @@ def adam_update(cfg: OptimConfig, params: Dict[str, torch.Tensor],
         nu[k] = (1 - cfg.b2) * (g * g) + cfg.b2 * state.nu[k]
         mu_hat = mu[k] / bc1
         nu_hat = nu[k] / bc2
-        step_size = -learning_rate(cfg, k, state.count).to(p.device)
+        step_size = -(learning_rate(cfg, k, state.count) if lr is None else lr).to(p.device)
         new[k] = p + step_size * (mu_hat / (torch.sqrt(nu_hat) + cfg.eps))
     return new, AdamState(count=count, mu=mu, nu=nu)
 

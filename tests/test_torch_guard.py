@@ -17,6 +17,7 @@ from splatter_a_video_tpu_torch.apps import train_state_io
 from splatter_a_video_tpu_torch.eval import tapvid
 from splatter_a_video_tpu_torch.models import gaussians
 from splatter_a_video_tpu_torch.train import fit, trainer
+from splatter_a_video_tpu_torch.train import atlas_trainer, camera_refine, engine
 from splatter_a_video_tpu_torch.utils import checkpoint
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -60,7 +61,12 @@ def test_importing_the_port_loads_no_jax():
      gaussians.create_scene, trainer.init_train_state, trainer.make_train_step,
      fit.fit_clip, fit.build_scene_from_clip, fit.scene_from_tracks, inference.track_correspondences,
      inference.gaussian_trajectories, tapvid.evaluate_scene_tracking, train_state_io.load_scene_from_ckpt,
-     checkpoint.load_state_dict],
+     checkpoint.load_state_dict, inference.select_gaussians_by_mask, inference.optimize_appearance,
+     inference.optimize_appearance_from_img, camera_refine.refine_camera_poses, camera_refine.init_cam_train_state,
+     camera_refine.make_joint_train_step, camera_refine.make_joint_grad_fn, atlas_trainer.init_atlas_train_state,
+     atlas_trainer.make_atlas_train_step, atlas_trainer.make_atlas_grad_fn, engine.make_engine_train_step,
+     engine.Engine, engine.engine_from_dataset, convert.cam_state_from_numpy, convert.atlas_from_numpy,
+     convert.atlas_train_state_from_numpy, convert.engine_state_from_numpy],
     ids=lambda f: f.__name__,
 )
 def test_entry_points_default_to_cuda(fn):
@@ -108,3 +114,16 @@ def test_fit_and_cli_without_device_raise_without_gpu(tmp_path):
     assert not (tmp_path / "run").exists()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         inference.track_correspondences(None, 0.0, np.zeros((1, 2)), 1.0, None, None)
+
+
+@pytest.mark.parametrize("app", ["render", "track", "edit"])
+def test_inference_clis_default_to_cuda(app, tmp_path):
+    """The render, track and edit CLIs take `--device`, default cuda: without
+    a GPU they raise before reading the checkpoint."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the CLIs run there")
+    import importlib
+
+    mod = importlib.import_module(f"splatter_a_video_tpu_torch.apps.{app}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(["--ckpt", str(tmp_path / "none"), "--width", "16", "--height", "16", "--num_frames", "1"])
