@@ -36,13 +36,23 @@ and holds each against its plain PyTorch version at the flagship shapes
      clip with a checkpoint and a resume; two atlases at full width; the
      perspective engine at 800x800 with `EngineConfig`'s defaults. Their
      new blend instances (K1 at K_idx 10 and at C = 4, K3 and K4 at C = 4,
-     the engine's perspective C = 4) are held to the plain versions too.
+     the engine's perspective C = 4) are held to the plain versions too;
+  data parallel, slabs, networks (phases 19-21): a process group of one
+     rank (NCCL, a FileStore): ten `make_dp_train_step` steps at the
+     training shape, one DP step on the card against the same step on the
+     CPU (gloo) at 64x48 at the gradient bars, one atlas and one joint DP
+     step; the flagship frame (C = 4) as 4 depth slabs folded, against the
+     single render (bar 1.2e-2), and the collective render at world size 1
+     `torch.equal` to the fold of one slab; Depth-Anything-V2-small,
+     TAPIR, LPIPS and the VGG perceptual loss at their default
+     configurations with random weights, timed, and held against the
+     port's CPU path on smaller inputs at the JAX package's bars.
 
 Every kernel check is `torch.equal` against the plain version.
 
 The launch counters are set to 0 just before each of the main paths (the
-video render, the ten train steps, the fit, and each side path's steps)
-and read just after; the
+video render, the ten train steps, the fit, each side path's steps, the DP
+steps and the slab render) and read just after; the
 kernel table's `launches` are the fit's, one per kernel and step. Each phase
 prints one line; any failure ends the run with a non-zero exit and no
 result line. The `[times]` lines and the kernel table carry each kernel's
@@ -104,6 +114,16 @@ ATLAS_STEPS = 10
 # phase 18, the perspective engine at the NeRF-synthetic view size
 ENGINE_WH, ENGINE_VIEWS, ENGINE_STEPS, ENGINE_SH_INTERVAL = 800, 8, 20, 10
 ENGINE_GT, ENGINE_ORBIT = 20_000, 2.5      # ground-truth cluster size, camera orbit radius
+# phase 19, data-parallel training in a process group of one rank
+DP_STEPS, DP_SMALL_TRACKS, DP_CAM_LR = 10, 16, 1e-3
+# phase 20, the flagship frame (rgb, depth: C = 4) as depth slabs
+SHARD_SLABS, SHARD_T = 4, 0.0
+SHARD_WALL, SHARD_TYPICAL = 1.2e-2, 2e-3   # tests/test_parallel.py:85 and :46
+# phase 21, the preprocessing networks at their default configurations, random weights
+NETS_SEED, NET_REPS = 0, 3
+TAPIR_FRAMES, TAPIR_CHUNK, TAPIR_CHUNKS, TAPIR_CHECK_FRAMES = 48, 128, 4, 8
+DA_CHECK_HW, LPIPS_CHECK_HW = (182, 322), (120, 214)   # the card against the CPU (DA: 13 x 23 patches)
+DA_TOL, TAPIR_ATOL, TAPIR_RTOL, LPIPS_RTOL = 1e-3, 5e-3, 1e-3, 2e-4
 
 
 def log(phase: str, msg: str) -> None:
@@ -726,7 +746,7 @@ def busy_line(tag: str, fn, reps: int, per: int, wall: float, card: str) -> str:
     busy /= per
     return (f"{tag}: device busy {busy:.3f} ms = {busy / wall:.1%} of {wall:.3f} ms wall; by kernel ms: "
             + "; ".join(f"{n[:50]} {ms / per:.4f}" for n, ms in top[:5]) + "; the port's kernels: "
-            + "; ".join(f"{n} {ms / per:.4f}" for n, ms in ours) + f" {card}")
+            + ("; ".join(f"{n} {ms / per:.4f}" for n, ms in ours) or "none") + f" {card}")
 
 
 def edit_phase(args, dev, card: str, scene, cpm: float) -> dict:
@@ -911,14 +931,9 @@ def pose_phase(args, dev, card: str, scene, clip) -> None:
                           jwall, card))
 
 
-def atlas_phase(args, dev, card: str) -> None:
-    """Phase 17: two atlases cut from the flagship arrays, ATLAS_STEPS steps
-    of `make_atlas_train_step` at full width and a density step."""
-    import torch
-
+def atlas_model(args):
+    """The two atlases of ATLAS_SPLIT cut from the flagship arrays, on the card."""
     from splatter_a_video_tpu_torch import convert
-    from splatter_a_video_tpu_torch.models import camera
-    from splatter_a_video_tpu_torch.train import atlas_trainer, trainer
 
     params, aux, cfg = flagship_scene_arrays(args.seed)
     atlases, lo = {}, 0
@@ -931,7 +946,18 @@ def atlas_phase(args, dev, card: str) -> None:
         atlases[name] = {"params": p, "aux": {"alive": np.arange(cap) < n, "spline_knots": aux["spline_knots"]},
                          "cfg": {**cfg, "capacity": cap}}
         lo += n
-    model = convert.atlas_from_numpy(atlases, device=DEVICE)
+    return convert.atlas_from_numpy(atlases, device=DEVICE)
+
+
+def atlas_phase(args, dev, card: str) -> None:
+    """Phase 17: two atlases cut from the flagship arrays, ATLAS_STEPS steps
+    of `make_atlas_train_step` at full width and a density step."""
+    import torch
+
+    from splatter_a_video_tpu_torch.models import camera
+    from splatter_a_video_tpu_torch.train import atlas_trainer, trainer
+
+    model = atlas_model(args)
     cam = camera.canonical_camera(W, H)
     tcfg = trainer.TrainerConfig(width=W, height=H, num_frames=FRAMES, max_intersections=MAX_INTERSECTIONS)
     step, dstep, _ = atlas_trainer.make_atlas_train_step(tcfg, cam.extrinsic, device=DEVICE)
@@ -1060,6 +1086,247 @@ def engine_phase(args, dev, card: str, cpm: float) -> dict:
     log("engine", f"GaussianSplattingRender.render_iter at {S}x{S}: finite, {int(out['visibility'].sum())} visible "
                   f"{card}")
     return rows
+
+
+def small_batch_arrays(seed: int, w: int = 64, h: int = 48, n: int = DP_SMALL_TRACKS):
+    """`train_batch_arrays` at w x h with n tracks."""
+    rng = np.random.RandomState(seed + 9)
+    xx = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+    yy = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    rgb = np.stack([0.5 + 0.4 * np.sin(2 * np.pi * (xx + 0.3 * yy) + ph) for ph in (0.0, 2.0, 4.0)], -1)
+    depth = 0.5 + 1.5 * (0.5 + 0.5 * np.cos(np.pi * xx) * np.cos(0.5 * np.pi * yy))
+    qp = np.stack([rng.uniform(0, w - 1, n), rng.uniform(0, h - 1, n)], 1)
+    tracks = np.concatenate([qp + rng.randn(n, 2) * 2.0, rng.uniform(-6.0, -2.0, (n, 2))], 1)
+    return dict(rgb1=rgb.astype(np.float32), depth1=depth.astype(np.float32), query_px=qp.astype(np.float32),
+                target_tracks=tracks.astype(np.float32), track_valid=np.ones(n, bool))
+
+
+def dp_phase(args, dev, card: str, scene) -> dict:
+    """Phase 19: a process group of one rank (NCCL, a FileStore in a temp
+    dir); DP_STEPS steps of `make_dp_train_step` at the flagship training
+    shape; one DP step on the card against the same step on the CPU at
+    64x48 (a gloo group of the same rank), at the gradient bars; one atlas
+    and one joint DP step at full width. One card shows no DP speedup: the
+    times are what one rank costs. Returns the DP steps' launch counts."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from splatter_a_video_tpu_torch.models import camera
+    from splatter_a_video_tpu_torch.parallel import dp, mesh
+    from splatter_a_video_tpu_torch.train import atlas_trainer, camera_refine, trainer
+
+    tmp = tempfile.mkdtemp()
+    mesh.init_process_group("nccl", store_path=os.path.join(tmp, "store"), rank=0, world_size=1)
+    require(mesh.world_size() == 1 and dist.get_backend() == "nccl", "the NCCL group of one rank")
+    cam = camera.canonical_camera(W, H)
+    tcfg = trainer.TrainerConfig(width=W, height=H, num_frames=FRAMES, max_intersections=MAX_INTERSECTIONS)
+    step = dp.make_dp_train_step(tcfg, cam.extrinsic, device=DEVICE)
+    state0 = state = trainer.init_train_state(tcfg, scene, seed=args.seed, device=DEVICE)
+    batch = dp.stack_batches([trainer.Batch(t1=TRAIN_T1, t2=TRAIN_T2, **train_batch_arrays(args.seed))])
+    torch.cuda.synchronize()
+    reset_launches()
+    hist, step_ms = [], []
+    for _ in range(DP_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        hist.append({k: float(v) for k, v in m.items()})
+    launches = read_launches()
+    require(launches == {k: DP_STEPS for k in launches}, f"DP launch counts {launches}")
+    require(all(np.isfinite(v) for m in hist for v in m.values()), "DP metrics not finite")
+    require(hist[-1]["loss_rgb"] < hist[0]["loss_rgb"], "DP loss_rgb did not fall")
+    require(state.step == DP_STEPS and state.opt_state.count == DP_STEPS, "DP step counts")
+    med = statistics.median(step_ms[1:])
+    log("dp", f"NCCL group of 1 rank (FileStore); {DP_STEPS} steps of make_dp_train_step at {W}x{H}, {ALIVE} alive in "
+              f"{CAPACITY}, C={len(TRAIN_MASK)}, {TRACKS} tracks: loss {hist[0]['loss']:.5f} -> {hist[-1]['loss']:.5f}, "
+              f"loss_rgb {hist[0]['loss_rgb']:.5f} -> {hist[-1]['loss_rgb']:.5f}; {med:.3f} ms/step wall (median of "
+              f"steps 2-{DP_STEPS}; all: {', '.join(f'{t:.1f}' for t in step_ms)}); launches {launches} {card}")
+    log("dp", busy_line("DP train step, 3 steps", lambda: step(state0, batch), 3, 1, med, card))
+
+    # one DP step on the card against the same step on the CPU (a gloo group of the same rank)
+    small = small_train_scene(args.seed)
+    scfg = trainer.TrainerConfig(width=64, height=48, num_frames=8, max_intersections=1 << 14,
+                                 num_track_samples=DP_SMALL_TRACKS)
+    scam = camera.canonical_camera(64, 48)
+    sbatch = dp.stack_batches([trainer.Batch(t1=2, t2=5, **small_batch_arrays(args.seed))])
+    gloo = mesh.make_mesh(backend="gloo")
+    outs = {}
+    for d, group in ((DEVICE, None), ("cpu", gloo)):
+        st = trainer.init_train_state(scfg, small, seed=args.seed, device=d)
+        outs[d] = dp.make_dp_train_step(scfg, scam.extrinsic, group=group, device=d)(st, sbatch)
+    (sg, mg), (sc, mc) = outs[DEVICE], outs["cpu"]
+    worst = 0.0
+    for k in sc.scene.params:   # the first Adam moment is 0.1 g
+        g_gpu, g_cpu = sg.opt_state.mu[k].cpu() / 0.1, sc.opt_state.mu[k] / 0.1
+        require(torch.isfinite(g_gpu).all().item(), f"DP gradient of {k} not finite")
+        worst = max(worst, ((g_gpu - g_cpu).abs() / (GRAD_ATOL + GRAD_RTOL * g_cpu.abs())).max().item())
+    loss_rel = abs(float(mg["loss"]) - float(mc["loss"])) / abs(float(mc["loss"]))
+    require(worst <= 1.0 and loss_rel <= 1e-4, f"DP step GPU vs CPU: {worst:.3g} of the bar, loss rel {loss_rel:.3g}")
+    log("dp", f"64x48 DP step, NCCL on the card vs gloo on the CPU: {len(sc.scene.params)} averaged gradients worst "
+              f"|diff| / (atol {GRAD_ATOL} + rtol {GRAD_RTOL} |cpu|) = {worst:.3g}; loss rel diff {loss_rel:.3g}")
+
+    # one atlas and one joint (camera-refine) DP step at full width
+    astep = dp.make_dp_atlas_step(tcfg, cam.extrinsic, device=DEVICE)
+    ast = atlas_trainer.init_atlas_train_state(tcfg, atlas_model(args), seed=args.seed, device=DEVICE)
+    ast1, am = astep(ast, batch)
+    require(ast1.step == 1 and all(np.isfinite(float(v)) for v in am.values()), "atlas DP step")
+    atlas_ms = wall_ms(lambda: astep(ast, batch), reps=3)
+    cs = camera_refine.init_cam_train_state(tcfg, scene, seed=args.seed, cam_lr=DP_CAM_LR, device=DEVICE)
+    jstep = dp.make_dp_joint_step(tcfg, cam.extrinsic, cam_lr=DP_CAM_LR, device=DEVICE)
+    cs1, jm = jstep(cs, batch)
+    moved = int((cs1.cam_xi[[TRAIN_T1, TRAIN_T2]] != 0).sum())
+    require(all(np.isfinite(float(v)) for v in jm.values()) and moved > 0, f"joint DP step (twists moved {moved})")
+    joint_ms = wall_ms(lambda: jstep(cs, batch), reps=3)
+    log("dp", f"make_dp_atlas_step ({len(ATLAS_SPLIT)} atlases) loss {float(am['loss']):.5f}, {atlas_ms:.3f} ms; "
+              f"make_dp_joint_step loss {float(jm['loss']):.5f}, {moved} of 12 twist entries of frames {TRAIN_T1} "
+              f"and {TRAIN_T2} moved, {joint_ms:.3f} ms (wall, median of 3) {card}")
+    return launches
+
+
+def shard_phase(args, dev, card: str, scene) -> dict:
+    """Phase 20: the flagship frame (C = 4) rendered as SHARD_SLABS depth
+    slabs in sequence on one card and folded, against the single render;
+    then the collective path at world size 1 over NCCL, `torch.equal` to
+    the fold of one slab. Returns the slabs' launch counts."""
+    import torch
+    import torch.distributed as dist
+
+    from splatter_a_video_tpu_torch.models import camera
+    from splatter_a_video_tpu_torch.ops import rasterize
+    from splatter_a_video_tpu_torch.parallel import render_shard
+
+    cam = camera.canonical_camera(W, H)
+    rcfg = rasterize.RasterizeConfig(width=W, height=H, max_intersections=MAX_INTERSECTIONS)
+    extr = torch.as_tensor(cam.extrinsic, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        inp = (scene.get_position(SHARD_T), scene.get_scaling(), scene.get_rotation(SHARD_T), scene.get_opacity(),
+               scene.get_shs())
+
+        def slabs():
+            parts = [render_shard.render_slab(*inp, extr, rcfg, r, SHARD_SLABS) for r in range(SHARD_SLABS)]
+            return render_shard.composite(*render_shard.fold_partials(*zip(*parts)))
+
+        torch.cuda.synchronize()
+        reset_launches()
+        out = slabs()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        forward_only = {k: SHARD_SLABS if k in ("blend_forward", "expand_intersections") else 0 for k in launches}
+        require(launches == forward_only, f"slab launch counts {launches}")
+        ref = rasterize.render_gaussians(*inp, extr, rcfg)
+        d = torch.maximum((out["rgb"] - ref.features["rgb"]).abs().max(-1).values,
+                          (out["final_T"][..., 0] - ref.final_T).abs())
+        dmax, share = d.max().item(), (d > SHARD_TYPICAL).float().mean().item()
+        require(all(torch.isfinite(v).all().item() for v in out.values()), "slab render not finite")
+        require(dmax <= SHARD_WALL, f"{SHARD_SLABS} slabs vs the single render: {dmax:.3g} > {SHARD_WALL}")
+        seq_ms = wall_ms(slabs, reps=5)
+        single_ms = wall_ms(lambda: rasterize.render_gaussians(*inp, extr, rcfg), reps=5)
+        coll = render_shard.render_gaussians_sharded(*inp, extr, rcfg)
+        one = render_shard.composite(*render_shard.render_slab(*inp, extr, rcfg, 0, 1))
+        require(all(torch.equal(coll[k], one[k]) for k in one), "collective render != the fold of one slab")
+        coll_ms = wall_ms(lambda: render_shard.render_gaussians_sharded(*inp, extr, rcfg), reps=5)
+    dist.destroy_process_group()
+    log("shard", f"flagship frame t={SHARD_T} (C=4) as {SHARD_SLABS} depth slabs in sequence, folded: max |diff| vs "
+                 f"the single render {dmax:.3g} (bar {SHARD_WALL}), {share:.3%} of pixels above {SHARD_TYPICAL}; "
+                 f"launches {launches}; walls: {SHARD_SLABS} slabs {seq_ms:.3f} ms, single render {single_ms:.3f} ms; "
+                 f"render_gaussians_sharded over NCCL at world size 1 torch.equal to the fold of one slab, "
+                 f"{coll_ms:.3f} ms {card}")
+    return launches
+
+
+def nets_phase(args, dev, card: str) -> None:
+    """Phase 21: Depth-Anything-V2-small on an 854x480 frame (resized to
+    518x924), TAPIR at 256x256 over 48 frames in 4 chunks of 128 queries,
+    LPIPS and the VGG perceptual loss on an 854x480 pair, all random
+    weights (seed NETS_SEED) at the default configurations; each timed,
+    and held against the port's CPU path on smaller inputs at the JAX
+    package's bars."""
+    import torch
+
+    from splatter_a_video_tpu_torch import convert
+    from splatter_a_video_tpu_torch.eval import metrics
+    from splatter_a_video_tpu_torch.nets import depth_anything as da
+    from splatter_a_video_tpu_torch.nets import tapir
+
+    require(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32, "TF32 pins")
+    rng = np.random.RandomState(args.seed + 11)
+    xx = np.linspace(0.0, 1.0, W, dtype=np.float32)[None, :, None]
+    yy = np.linspace(0.0, 1.0, H, dtype=np.float32)[:, None, None]
+    frame = np.clip(0.5 + 0.4 * np.sin(2 * np.pi * (3 * xx + 2 * yy) + np.array([0.0, 2.0, 4.0]))
+                    + 0.05 * rng.randn(H, W, 3), 0, 1).astype(np.float32)
+
+    # Depth-Anything-V2-small
+    dcfg = da.DepthAnythingConfig()
+    dparams = da.random_params(dcfg, NETS_SEED)
+    dm, dm_cpu = (convert.depth_anything_from_numpy(dparams, dcfg, device=d) for d in (DEVICE, "cpu"))
+    img = (frame * 255).astype(np.uint8)
+    disp = da.infer_disparity(dm, img)
+    require(disp.shape == (H, W) and np.isfinite(disp).all(), "infer_disparity")
+    x = torch.from_numpy(rng.randn(1, *DA_CHECK_HW, 3).astype(np.float32))
+    d_gpu, d_cpu = dm(x.to(dev)).cpu(), dm_cpu(x)
+    d_err = (d_gpu - d_cpu).abs().max().item()
+    require(torch.allclose(d_gpu, d_cpu, atol=DA_TOL, rtol=DA_TOL), f"DA card vs CPU: {d_err:.3g}")
+    da_ms = wall_ms(lambda: da.infer_disparity(dm, img), reps=NET_REPS)
+    log("nets", f"Depth-Anything-V2-small (random weights, seed {NETS_SEED}): {W}x{H} frame -> "
+                f"{da._fit_size(H, W)} -> disparity {disp.shape}, finite, range {disp.min():.4g}..{disp.max():.4g}; "
+                f"{da_ms:.3f} ms/frame (infer_disparity, wall); card vs CPU at {DA_CHECK_HW}: max |diff| {d_err:.3g} "
+                f"(bar {DA_TOL}, CPU max {d_cpu.abs().max().item():.4g}) {card}")
+    log("nets", busy_line("Depth-Anything frame", lambda: da.infer_disparity(dm, img), NET_REPS, 1, da_ms, card))
+
+    # TAPIR at 256x256, 48 frames, 4 chunks of 128 queries
+    tcfg = tapir.TapirConfig()
+    tparams = tapir.random_params(tcfg, NETS_SEED)
+    tm, tm_cpu = (convert.tapir_from_numpy(tparams, tcfg, device=d) for d in (DEVICE, "cpu"))
+    res = tcfg.initial_resolution
+    video = (np.clip(np.stack([frame[(np.arange(res[0]) * H) // res[0]][:, (np.arange(res[1]) * W) // res[1]]
+                               * (0.9 + 0.1 * np.cos(0.2 * t)) for t in range(TAPIR_FRAMES)]), 0, 1)
+             * 255).astype(np.uint8)
+    nq = TAPIR_CHUNK * TAPIR_CHUNKS
+    qp = np.stack([rng.randint(0, TAPIR_FRAMES, nq), rng.uniform(0, res[0] - 1, nq),
+                   rng.uniform(0, res[1] - 1, nq)], 1).astype(np.float32)
+    out = tapir.track_points(tm, video, qp, chunk=TAPIR_CHUNK)
+    require(out["tracks"].shape == (nq, TAPIR_FRAMES, 2) and all(np.isfinite(v).all() for v in out.values()),
+            "track_points")
+    tapir_ms = wall_ms(lambda: tapir.track_points(tm, video, qp, chunk=TAPIR_CHUNK), reps=1) / TAPIR_CHUNKS
+    q8 = qp[:TAPIR_CHUNK].copy()
+    q8[:, 0] = q8[:, 0] % TAPIR_CHECK_FRAMES
+    g8 = tapir.track_points(tm, video[:TAPIR_CHECK_FRAMES], q8, chunk=TAPIR_CHUNK)
+    t0 = time.perf_counter()
+    c8 = tapir.track_points(tm_cpu, video[:TAPIR_CHECK_FRAMES], q8, chunk=TAPIR_CHUNK)
+    cpu_s = time.perf_counter() - t0
+    errs = {k: np.abs(g8[k] - c8[k]).max() for k in c8}
+    require(all(np.allclose(g8[k], c8[k], atol=TAPIR_ATOL, rtol=TAPIR_RTOL) for k in c8),
+            f"TAPIR card vs CPU: {errs}")
+    log("nets", f"TAPIR (random weights, seed {NETS_SEED}) at {res[0]}x{res[1]}, {TAPIR_FRAMES} frames, "
+                f"{TAPIR_CHUNKS} chunks of {TAPIR_CHUNK} queries: finite; {tapir_ms:.3f} ms/chunk (track_points, "
+                f"wall; each chunk recomputes the {TAPIR_FRAMES} frames' feature grids); card vs CPU on "
+                f"{TAPIR_CHECK_FRAMES} frames, one chunk: max |diff| "
+                + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+                + f" (bars atol {TAPIR_ATOL}, rtol {TAPIR_RTOL}; CPU {cpu_s:.1f} s) {card}")
+    log("nets", busy_line("TAPIR chunk", lambda: tapir.track_points(tm, video, qp[:TAPIR_CHUNK], chunk=TAPIR_CHUNK),
+                          1, 1, tapir_ms, card))
+
+    # LPIPS and the VGG perceptual loss
+    other = np.clip(frame + 0.1 * rng.randn(H, W, 3), 0, 1).astype(np.float32)
+    mask = (rng.rand(H, W) > 0.3).astype(np.float32)
+    lp = metrics.lpips(frame, other, device=DEVICE)
+    vg = metrics.vgg_perceptual_loss(frame, other, mask, device=DEVICE)
+    require(np.isfinite(lp) and lp > 0 and np.isfinite(vg) and vg > 0, f"lpips {lp}, vgg {vg}")
+    lp_ms = wall_ms(lambda: metrics.lpips(frame, other, device=DEVICE), reps=NET_REPS)
+    vg_ms = wall_ms(lambda: metrics.vgg_perceptual_loss(frame, other, mask, device=DEVICE), reps=NET_REPS)
+    h, w = LPIPS_CHECK_HW
+    pair = (frame[:h, :w], other[:h, :w])
+    rel = max(abs(f(*pair, device=DEVICE) - f(*pair, device="cpu")) / abs(f(*pair, device="cpu"))
+              for f in (metrics.lpips, lambda a, b, device: metrics.vgg_perceptual_loss(a, b, mask[:h, :w], device)))
+    require(rel <= LPIPS_RTOL, f"LPIPS / VGG loss card vs CPU rel {rel:.3g}")
+    log("nets", f"LPIPS (random VGG16 trunk, seed 0) {lp:.5f}, {lp_ms:.3f} ms/pair; vgg_perceptual_loss (masked) "
+                f"{vg:.5f}, {vg_ms:.3f} ms/pair ({W}x{H}, wall); card vs CPU at {w}x{h}: rel diff {rel:.3g} "
+                f"(bar {LPIPS_RTOL}) {card}")
+    log("nets", busy_line("LPIPS pair", lambda: metrics.lpips(frame, other, device=DEVICE), NET_REPS, 1, lp_ms, card))
 
 
 def main() -> int:
@@ -1510,6 +1777,11 @@ def main() -> int:
     atlas_phase(args, dev, card)
     instances = merge_rows(instances, engine_phase(args, dev, card, cpm))
 
+    # ---- 19-21. data-parallel steps, the depth-slab render, the networks ----
+    dp_launches = dp_phase(args, dev, card, scene)
+    shard_launches = shard_phase(args, dev, card, scene)
+    nets_phase(args, dev, card)
+
     kernels = [
         {"name": "blend_forward", "route": "cuda",
          "source": "splatter_a_video_tpu_torch/csrc/blend_forward.cu",
@@ -1546,6 +1818,8 @@ def main() -> int:
         k["launches"] = fit_launches[k["name"]]
         # the blend instances of phases 15 and 18, each held torch.equal
         k["instances"] = instances.get(k["name"], [])
+        # the DP steps' and the depth slabs' launches (phases 19, 20)
+        k["dp_launches"], k["shard_launches"] = dp_launches[k["name"]], shard_launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

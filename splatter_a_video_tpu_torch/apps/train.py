@@ -3,12 +3,16 @@
 Writes `args.json`, checkpoints (`ckpt_{step:06d}/state.pt`, every
 `--i_weight` steps and at the end), `scene_cfg.json` and `history.json`
 into `--out_dir`; `--resume` continues from the newest checkpoint there.
-Trains on the GPU unless `--device cpu` is given.
+Trains on the GPU unless `--device cpu` is given. `--distributed` trains
+data-parallel, one process per GPU under `torchrun` (the process group
+comes from its environment; rank 0 alone writes); without `torchrun` it
+trains on one device, as the JAX package does on one chip.
 
 Usage:
   python -m splatter_a_video_tpu_torch.apps.train --config cfg.txt --seq_name X
   python -m splatter_a_video_tpu_torch.apps.train --synthetic --num_iters 500
   python -m splatter_a_video_tpu_torch.apps.train --synthetic --device cpu --num_iters 20
+  torchrun --nproc_per_node 4 -m splatter_a_video_tpu_torch.apps.train --synthetic --distributed 1
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ from __future__ import annotations
 import json
 import os
 import time
+
+import torch
 
 
 def main(argv=None):
@@ -30,10 +36,21 @@ def main(argv=None):
     from ..train import trainer as trainer_lib
     from ..utils import checkpoint as ckpt_lib
 
-    device = resolve_device(args.device)
+    main_rank = True
+    if args.distributed and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        from ..parallel import mesh
+
+        device = resolve_device(mesh.local_device(args.device))
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        mesh.init_process_group("nccl" if device.type == "cuda" else "gloo")
+        main_rank = mesh.rank() == 0
+    else:
+        device = resolve_device(args.device)
     os.makedirs(args.out_dir, exist_ok=True)
-    with open(os.path.join(args.out_dir, "args.json"), "w") as f:
-        json.dump(vars(args), f, indent=2, default=str)
+    if main_rank:
+        with open(os.path.join(args.out_dir, "args.json"), "w") as f:
+            json.dump(vars(args), f, indent=2, default=str)
 
     if args.synthetic:
         data = synth_lib.make_clip(synth_lib.SyntheticClipConfig())
@@ -109,13 +126,14 @@ def main(argv=None):
         data, fcfg, tcfg, callback=cb, hooks=hooks, out_dir=args.out_dir, resume=args.resume,
         sampler=sampler, device=device,
     )
-    ckpt_lib.save_checkpoint(args.out_dir, state, int(state.step))
-    from .train_state_io import save_scene_cfg
+    if main_rank:
+        ckpt_lib.save_checkpoint(args.out_dir, state, int(state.step))
+        from .train_state_io import save_scene_cfg
 
-    save_scene_cfg(args.out_dir, state.scene)
-    with open(os.path.join(args.out_dir, "history.json"), "w") as f:
-        json.dump(history, f)
-    print(f"done in {time.time() - t0:.1f}s -> {args.out_dir}")
+        save_scene_cfg(args.out_dir, state.scene)
+        with open(os.path.join(args.out_dir, "history.json"), "w") as f:
+            json.dump(history, f)
+        print(f"done in {time.time() - t0:.1f}s -> {args.out_dir}")
     return state
 
 

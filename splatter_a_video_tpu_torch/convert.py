@@ -18,6 +18,11 @@ multi-atlas model is a dict of scenes (`atlas_from_numpy`), and its train
 state a dict of per-atlas scene, optimizer and statistics arrays
 (`atlas_train_state_from_numpy`). The perspective engine's state has a
 train state's fields (`engine_state_from_numpy`).
+
+The preprocessing networks take the JAX package's numpy parameter dicts
+(`random_params`, `params_from_torch`, or a converted `.npz`):
+`vit_from_numpy`, `depth_anything_from_numpy`, `tapir_from_numpy` and
+`lpips_from_numpy` give the port's modules on a device.
 """
 
 from __future__ import annotations
@@ -223,3 +228,35 @@ def engine_state_from_numpy(params, aux, cfg, opt: dict, densify, step: int, key
     from .train.engine import EngineState
 
     return EngineState(*train_state_from_numpy(params, aux, cfg, opt, densify, step, device=device, key=key))
+
+
+def vit_from_numpy(params: Dict[str, np.ndarray], cfg, device="cuda"):
+    """The port's `nets.vit.ViT` on `device` from the JAX package's ViT
+    parameter dict (numpy, linears [in, out], the patch kernel HWIO)."""
+    from .nets.vit import ViT
+
+    return ViT(cfg, params).to(resolve_device(device))
+
+
+def depth_anything_from_numpy(params: Dict[str, np.ndarray], cfg, pretrained: bool = False, device="cuda"):
+    """The port's `nets.depth_anything.DepthAnything` on `device` from the
+    JAX package's parameter dict (convs HWIO, deconvs [k, k, out, in])."""
+    from .nets.depth_anything import DepthAnything
+
+    return DepthAnything(cfg, params, pretrained).to(resolve_device(device))
+
+
+def tapir_from_numpy(params: Dict[str, np.ndarray], cfg, pretrained: bool = False, device="cuda"):
+    """The port's `nets.tapir.Tapir` on `device` from the JAX package's
+    parameter dict (convs HWIO, linears [in, out], depthwise [k, 1, out])."""
+    from .nets.tapir import Tapir
+
+    return Tapir(cfg, params, pretrained).to(resolve_device(device))
+
+
+def lpips_from_numpy(params: Dict[str, np.ndarray], pretrained: bool = False, device="cuda"):
+    """The port's `eval.lpips.Lpips` on `device` from the JAX package's
+    VGG16 + heads dict (convs HWIO)."""
+    from .eval.lpips import Lpips
+
+    return Lpips(params, pretrained).to(resolve_device(device))

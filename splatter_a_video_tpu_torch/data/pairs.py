@@ -6,7 +6,8 @@ of `splatter_a_video_tpu/data/pairs.py`).
   * `BatchBuilder`: the per-pair TAPIR track batch, padded or subsampled
     to `num_track_samples`, as numpy arrays in the port's `trainer.Batch`;
   * `batch_stream`: a background thread assembles the numpy batches;
-    `batch_to_device` moves one to the card in the consuming thread.
+    `batch_to_device` moves one to the card in the consuming thread;
+  * `dp_batch_stream`: the data-parallel stream, n pairs a step.
 
 The samplers' and the builder's `RandomState`s are drawn in the JAX
 package's order, so both packages see the same pairs and track rows. For
@@ -142,19 +143,17 @@ def batch_to_device(batch: Batch, device) -> Batch:
     return Batch(int(batch.t1), int(batch.t2), *(move(a) for a in batch[2:]))
 
 
-def batch_stream(sampler: PairSampler, builder: BatchBuilder, num_steps: int, prefetch: int = 2,
-                 start_step: int = 0) -> Iterator[Batch]:
-    """Numpy batches of steps [start_step, num_steps), assembled on a
-    background thread `prefetch` ahead of the consumer."""
+def _prefetch(make, steps, prefetch: int) -> Iterator[Batch]:
+    """make(step) for each step, assembled on a background thread
+    `prefetch` ahead of the consumer."""
     q: "queue.Queue" = queue.Queue(maxsize=prefetch)
     stop = threading.Event()
 
     def worker():
-        for step in range(start_step, num_steps):
+        for step in steps:
             if stop.is_set():
                 return
-            t1, t2 = sampler.sample(step)
-            q.put(builder.build(t1, t2))
+            q.put(make(step))
         q.put(None)
 
     th = threading.Thread(target=worker, daemon=True)
@@ -167,3 +166,25 @@ def batch_stream(sampler: PairSampler, builder: BatchBuilder, num_steps: int, pr
             yield b
     finally:
         stop.set()
+
+
+def batch_stream(sampler: PairSampler, builder: BatchBuilder, num_steps: int, prefetch: int = 2,
+                 start_step: int = 0) -> Iterator[Batch]:
+    """Numpy batches of steps [start_step, num_steps), assembled on a
+    background thread `prefetch` ahead of the consumer."""
+    return _prefetch(lambda step: builder.build(*sampler.sample(step)), range(start_step, num_steps), prefetch)
+
+
+def dp_batch_stream(sampler: PairSampler, builder: BatchBuilder, num_steps: int, n_devices: int,
+                    prefetch: int = 2, start_step: int = 0) -> Iterator[Batch]:
+    """Data-parallel batches: each has a leading [n_devices] axis, one
+    frame pair per rank (the `parallel/dp.stack_batches` layout). Step s
+    takes the sampler's draws s * n + d for d = 0..n-1 and builds them in
+    that order, so every rank builds all n pairs, the builder's rng
+    advancing as in the JAX package, and rank d trains on slot d."""
+    from ..parallel.dp import stack_batches
+
+    def make(step):
+        return stack_batches([builder.build(*sampler.sample(step * n_devices + d)) for d in range(n_devices)])
+
+    return _prefetch(make, range(start_step, num_steps), prefetch)

@@ -11,8 +11,13 @@ events and at error-map resampling; no other step waits for the card.
 `refine_camera=True` trains per-frame camera twists with the scene
 (`camera_refine.make_joint_train_step`); the twists and their Adam state
 are saved to `out_dir/camera_refine.pt` at every log and hook cadence and
-restored with `resume`. Not ported yet: data-parallel training
-(`distributed=True`, ROADMAP A.16), which raises `NotImplementedError`.
+restored with `resume`.
+
+`distributed=True` trains data-parallel over the ranks of the default
+process group (`parallel/dp.py`, one frame pair per rank a step, from
+`dp_batch_stream`); rank 0 alone prints, writes, traces and runs the hooks. At
+world size 1 (no process group, or a group of one) it takes the plain step,
+as the JAX package does on one device.
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..data.pairs import BatchBuilder, PairSampler, PairSamplerConfig, batch_stream, batch_to_device
+from ..data.pairs import (BatchBuilder, PairSampler, PairSamplerConfig, batch_stream, batch_to_device,
+                          dp_batch_stream)
 from ..data.video_flow import VideoFlowData, bilinear_sample, normalize_xy
 from ..device import resolve_device
 from ..models import camera as _camera
@@ -67,7 +73,7 @@ class FitConfig:
     # every this many steps: render every frame, write the per-frame mean
     # |rgb error| to out_dir/flow_error.txt and draw id1 by it (0 = off)
     error_resample_every: int = 0
-    distributed: bool = False                # not ported yet (ROADMAP A.16)
+    distributed: bool = False                # data-parallel over the default process group
     # PSNR / SSIM over `val_frames` evenly spaced frames every `val_every`
     # steps, with the four val hook sites (0 = off)
     val_every: int = 0
@@ -272,8 +278,6 @@ def fit_clip(
     `out_dir` and continues from its step; as in the JAX package, the pair
     sampler and the track-row draws then start again from their seeds.
     """
-    if fit_cfg is not None and fit_cfg.distributed:
-        raise NotImplementedError("distributed=True: data-parallel training is not ported yet (ROADMAP A.16)")
     dev = resolve_device(device)
     t_fit0 = time.time()
     fit_cfg = fit_cfg or FitConfig()
@@ -305,6 +309,9 @@ def fit_clip(
         trainer_cfg, cam.extrinsic, frames=frames, device=dev)
     cam_refine_state = None
     if fit_cfg.refine_camera:
+        if fit_cfg.distributed:
+            raise ValueError("refine_camera is not supported with distributed=True "
+                             "(per-frame twists would need a cross-rank reduction)")
         from . import camera_refine as _cam_refine
 
         # the camera lr decays to 0 over the steps after the warm-up, which
@@ -324,6 +331,17 @@ def fit_clip(
             _cs["xi"], _cs["opt"] = cs.cam_xi, cs.cam_opt_state
             return cs.base, {**metrics, "cam_xi_norm": torch.linalg.vector_norm(cs.cam_xi)}
 
+    ndev, main_rank = 1, True
+    if fit_cfg.distributed:
+        from ..parallel import dp as _dp
+        from ..parallel import mesh as _mesh
+
+        ndev, main_rank = _mesh.world_size(), _mesh.rank() == 0
+        if ndev > 1:
+            train_step = _dp.make_dp_train_step(trainer_cfg, cam.extrinsic, frames=frames, device=dev)
+        if not main_rank:   # the other ranks hold the same state: rank 0 writes
+            hooks, callback = [], None
+    say = print if main_rank else (lambda *a, **k: None)
     from .hooks import HookContext, run_hooks
 
     hooks = hooks or []
@@ -339,7 +357,7 @@ def fit_clip(
         restored, ck_step = _ckpt.restore_checkpoint(out_dir, state)
         if restored is not None:
             state, start_step = restored, int(ck_step)
-            print(f"resumed from {out_dir} at step {start_step}", flush=True)
+            say(f"resumed from {out_dir} at step {start_step}", flush=True)
             ctx.state = state
             ctx.step = start_step
             if cam_refine_state is not None and _restore_cam_refine(cam_refine_state, out_dir, dev):
@@ -379,11 +397,16 @@ def fit_clip(
     t_start = time.time()
     t_first_step = None  # wall after step 1 completes
     profiler = None
-    stream = batch_stream(sampler, builder, fit_cfg.num_iters, start_step=start_step)
+    if ndev > 1:
+        stream = dp_batch_stream(sampler, builder, fit_cfg.num_iters, ndev, start_step=start_step)
+        to_step = lambda b: b            # the DP step moves its own slot to the device
+    else:
+        stream = batch_stream(sampler, builder, fit_cfg.num_iters, start_step=start_step)
+        to_step = lambda b: batch_to_device(b, dev)
     for step, batch in enumerate(stream, start=start_step + 1):
         ctx.step = step
         run_hooks(hooks, "before_train_iter", ctx)
-        if fit_cfg.profile_dir is not None:
+        if fit_cfg.profile_dir is not None and main_rank:
             if step == fit_cfg.profile_start:
                 from torch.profiler import ProfilerActivity, profile
 
@@ -392,7 +415,7 @@ def fit_clip(
                 profiler.start()
             elif profiler is not None and step == fit_cfg.profile_start + fit_cfg.profile_count:
                 profiler = _stop_profile(profiler, fit_cfg, dev)
-        state, metrics = train_step(state, batch_to_device(batch, dev))
+        state, metrics = train_step(state, to_step(batch))
         if t_first_step is None:
             # one deliberate wait: separates the first step (kernel builds,
             # caches) from the steady rate in the timing breakdown
@@ -412,7 +435,7 @@ def fit_clip(
             densify_totals["dropped"] += info["dropped"]
             densify_totals["events"] += 1
             if info["dropped"] > 0:
-                print(f"# densify step {step}: {info['dropped']} candidates dropped (capacity "
+                say(f"# densify step {step}: {info['dropped']} candidates dropped (capacity "
                       f"{int(state.scene.cfg.capacity)}, alive {info['num_alive']})", flush=True)
             # saturation latch: a full scene cannot grow, and further events
             # only prune and refill (the churn that collapsed the textured
@@ -423,14 +446,14 @@ def fit_clip(
             if sat_stop and info["num_alive"] >= sat_stop * state.scene.cfg.capacity:
                 densify_stopped = True
                 densify_totals["stopped_at_step"] = step
-                print(f"# densify stopped at step {step}: saturation {info['num_alive']}/"
+                say(f"# densify stopped at step {step}: saturation {info['num_alive']}/"
                       f"{int(state.scene.cfg.capacity)} >= {sat_stop:.2f} (churn guard)", flush=True)
         if _trainer.should_reset_opacity(trainer_cfg, step):
             state = opacity_reset(state)
         if frame_errors is not None and step % fit_cfg.error_resample_every == 0 and step < fit_cfg.num_iters:
             errs = np.maximum(frame_errors(state.scene), 1e-8)
             sampler.cfg.error_weights = errs  # biases later id1 draws
-            if out_dir is not None:
+            if out_dir is not None and main_rank:
                 np.savetxt(os.path.join(out_dir, "flow_error.txt"), errs)
         fire_log = step % fit_cfg.log_every == 0 or step == fit_cfg.num_iters
         if fire_log or any(step % c == 0 for c in hook_cadences):

@@ -12,10 +12,14 @@ import pytest
 import torch
 
 from splatter_a_video_tpu_torch import convert, inference
+from splatter_a_video_tpu_torch.apps import preprocess as preprocess_app
 from splatter_a_video_tpu_torch.apps import train as train_app
 from splatter_a_video_tpu_torch.apps import train_state_io
-from splatter_a_video_tpu_torch.eval import tapvid
+from splatter_a_video_tpu_torch.data import preprocess
+from splatter_a_video_tpu_torch.eval import lpips, metrics, tapvid
 from splatter_a_video_tpu_torch.models import gaussians
+from splatter_a_video_tpu_torch.nets import depth_anything, tapir
+from splatter_a_video_tpu_torch.parallel import dp
 from splatter_a_video_tpu_torch.train import fit, trainer
 from splatter_a_video_tpu_torch.train import atlas_trainer, camera_refine, engine
 from splatter_a_video_tpu_torch.utils import checkpoint
@@ -66,7 +70,12 @@ def test_importing_the_port_loads_no_jax():
      camera_refine.make_joint_train_step, camera_refine.make_joint_grad_fn, atlas_trainer.init_atlas_train_state,
      atlas_trainer.make_atlas_train_step, atlas_trainer.make_atlas_grad_fn, engine.make_engine_train_step,
      engine.Engine, engine.engine_from_dataset, convert.cam_state_from_numpy, convert.atlas_from_numpy,
-     convert.atlas_train_state_from_numpy, convert.engine_state_from_numpy],
+     convert.atlas_train_state_from_numpy, convert.engine_state_from_numpy, dp.make_dp_train_step,
+     dp.make_dp_atlas_step, dp.make_dp_joint_step, convert.vit_from_numpy, convert.depth_anything_from_numpy,
+     convert.tapir_from_numpy, convert.lpips_from_numpy, depth_anything.get_model, depth_anything.prepare_image,
+     tapir.get_model, lpips.get_model, lpips.lpips_distance, lpips.lpips_is_pretrained, metrics.lpips,
+     metrics.lpips_is_pretrained, metrics.vgg_perceptual_loss, preprocess.compute_monodepth,
+     preprocess.compute_tracks],
     ids=lambda f: f.__name__,
 )
 def test_entry_points_default_to_cuda(fn):
@@ -127,3 +136,19 @@ def test_inference_clis_default_to_cuda(app, tmp_path):
     mod = importlib.import_module(f"splatter_a_video_tpu_torch.apps.{app}")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mod.main(["--ckpt", str(tmp_path / "none"), "--width", "16", "--height", "16", "--num_frames", "1"])
+
+
+def test_network_entry_points_raise_without_gpu(tmp_path):
+    """The preprocessing networks, LPIPS, the DP steps and the preprocess
+    CLI run on the GPU unless told otherwise; without one they raise before
+    any work."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device runs there")
+    img = np.zeros((8, 8, 3), np.float32)
+    for call in (lambda: metrics.lpips(img, img), lambda: metrics.vgg_perceptual_loss(img, img),
+                 lambda: depth_anything.get_model(), lambda: tapir.get_model(),
+                 lambda: dp.make_dp_train_step(trainer.TrainerConfig(width=16, height=16, num_frames=1),
+                                               np.eye(3, 4)),
+                 lambda: preprocess_app.main(["--datadir", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
