@@ -23,8 +23,9 @@ and holds each against its plain PyTorch version at the flagship shapes
      slots; cut: 300 steps, the density schedule moved forward so events
      fire at steps 200 and 300, track grid 4), its setup, steady ms/step,
      device busy share, the host time of its random draws and a checkpoint
-     round trip; the mini-fit of `tests/test_quality_gate.py` on the card
-     against its pinned bands (PSNR and alive held; AJ and OA printed
+     round trip; the same fit a second time, held `torch.equal` to the
+     first after each density event and at the end; the mini-fit of
+     `tests/test_quality_gate.py` on the card against its pinned bands (PSNR and alive held; AJ and OA printed
      beside theirs), and without random draws held to the JAX package's
      fit and to all four bands (see `mini_fit_phase`); the training CLI
      (`apps.train --synthetic`: train, checkpoint, `--resume`, reload and
@@ -46,7 +47,13 @@ and holds each against its plain PyTorch version at the flagship shapes
      `torch.equal` to the fold of one slab; Depth-Anything-V2-small,
      TAPIR, LPIPS and the VGG perceptual loss at their default
      configurations with random weights, timed, and held against the
-     port's CPU path on smaller inputs at the JAX package's bars.
+     port's CPU path on smaller inputs at the JAX package's bars;
+  the loss library (phase 22): the first-K entropy and blend on the
+     flagship frame's ids at K_idx 10, the depth correlation, scale-shift-
+     invariant and range losses on its depth, the feature smoothness over
+     the scene's positions and the distortion loss, each against the CPU
+     (values and gradients) and each gradient twice on the card,
+     `torch.equal`.
 
 Every kernel check is `torch.equal` against the plain version.
 
@@ -124,6 +131,10 @@ NETS_SEED, NET_REPS = 0, 3
 TAPIR_FRAMES, TAPIR_CHUNK, TAPIR_CHUNKS, TAPIR_CHECK_FRAMES = 48, 128, 4, 8
 DA_CHECK_HW, LPIPS_CHECK_HW = (182, 322), (120, 214)   # the card against the CPU (DA: 13 x 23 patches)
 DA_TOL, TAPIR_ATOL, TAPIR_RTOL, LPIPS_RTOL = 1e-3, 5e-3, 1e-3, 2e-4
+# phase 22, the loss library on the flagship frame and scene, the card against the CPU
+HELPERS_T, HELPERS_K, HELPERS_RTOL = 0.0, 10, 1e-4
+HELPERS_PATCH, HELPERS_PATCHES, HELPERS_SAMPLES, HELPERS_KNN, HELPERS_BINS = 32, 128, 512, 10, 8
+HELPERS_DEPTH_RANGE = (0.8, 1.5)
 
 
 def log(phase: str, msg: str) -> None:
@@ -381,9 +392,64 @@ def fit_configs(args, steps: int, **fit_kw):
     return fcfg, tcfg
 
 
+def state_digest(snap: dict) -> str:
+    """A 64-bit digest of a state snapshot: each tensor's bit patterns
+    summed with position weights in wrapping int64 on the card, the sums
+    chained in name order."""
+    import torch
+
+    h = 0
+    for name in sorted(snap):
+        b = snap[name].contiguous().view(-1)
+        b = b.view(torch.int32).long() if b.dtype in (torch.float32, torch.int32) else b.long()
+        w = torch.arange(1, b.numel() + 1, device=b.device, dtype=torch.int64) * 2654435761 % 2147483647
+        h = (h * 1000003 + int((b * w).sum())) % (1 << 64)
+    return f"{h:016x}"
+
+
+def snapshot(state) -> dict:
+    """Clones of a train state's parameters, Adam moments, aux tensors,
+    density statistics and key."""
+    snap = {}
+    for k, v in state.scene.params.items():
+        snap[f"param {k}"] = v.detach().clone()
+        snap[f"mu {k}"] = state.opt_state.mu[k].clone()
+        snap[f"nu {k}"] = state.opt_state.nu[k].clone()
+    snap.update({f"aux {k}": v.clone() for k, v in state.scene.aux.items()})
+    snap.update({f"densify {i}": v.clone() for i, v in enumerate(state.densify_state)})
+    snap["key"] = state.key.clone()
+    return snap
+
+
+def fit_watch(events):
+    """A hook that keeps the alive count at the start and after each
+    density event, and a snapshot of the state after each event and at
+    the end (its cadence puts an after_train_iter site on every event)."""
+    from splatter_a_video_tpu_torch.train import hooks
+
+    class Watch(hooks.Hook):
+        every = FIT_DENSITY["duplicate_interval"]
+
+        def before_train(self, ctx):
+            self.alive, self.capacity = int(ctx.state.scene.num_alive), ctx.state.scene.cfg.capacity
+            self.at, self.snaps = {}, {}
+
+        def after_train_iter(self, ctx):
+            self.at[ctx.step] = ctx.metrics["alive"]
+            if ctx.step in events:
+                self.snaps[ctx.step] = snapshot(ctx.state)
+
+        def after_train(self, ctx):
+            self.at["end"] = int(ctx.state.scene.num_alive)
+            self.snaps["end"] = snapshot(ctx.state)
+
+    return Watch()
+
+
 def fit_phase(args, dev, card: str):
     """Phase 12: `fit.fit_clip` at full width for FIT_STEPS steps; returns
-    the launch counts of the fit and its clip (phase 16 fits it again)."""
+    the launch counts of the fit, its clip (phase 16 fits it again) and
+    its watch hook (the repeat check holds a second fit to it)."""
     import pathlib
     import tempfile
 
@@ -392,7 +458,7 @@ def fit_phase(args, dev, card: str):
     from splatter_a_video_tpu_torch.data import pairs, synthetic
     from splatter_a_video_tpu_torch.models import camera
     from splatter_a_video_tpu_torch.ops import rasterize_gpu as rg
-    from splatter_a_video_tpu_torch.train import fit, hooks, trainer
+    from splatter_a_video_tpu_torch.train import fit, trainer
     from splatter_a_video_tpu_torch.utils import checkpoint
 
     t0 = time.perf_counter()
@@ -402,20 +468,7 @@ def fit_phase(args, dev, card: str):
     events = [s for s in range(1, FIT_STEPS + 1) if trainer.should_densify(tcfg, s)]
     capacity = int(np.ceil(ALIVE * fcfg.capacity_factor / 128) * 128)
 
-    class Watch(hooks.Hook):
-        """The alive count at the start and after each density event (the
-        hook's cadence puts an after_train_iter site on every event step)."""
-
-        every = FIT_DENSITY["duplicate_interval"]
-
-        def before_train(self, ctx):
-            self.alive, self.capacity = int(ctx.state.scene.num_alive), ctx.state.scene.cfg.capacity
-            self.at = {}
-
-        def after_train_iter(self, ctx):
-            self.at[ctx.step] = ctx.metrics["alive"]
-
-    watch = Watch()
+    watch = fit_watch(events)
     for k in rg.LAUNCHES:
         rg.LAUNCHES[k] = 0
     state, hist = fit.fit_clip(clip, fcfg, tcfg, hooks=[watch], device=DEVICE)
@@ -507,7 +560,38 @@ def fit_phase(args, dev, card: str):
             "full-width checkpoint round trip differs")
     log("fit", f"checkpoint at step {step}: {size / 2**20:.1f} MiB, saved in {save_s:.2f} s, restored in "
                f"{load_s:.2f} s; every tensor torch.equal, step and Adam count {back.opt_state.count}")
-    return fit_launches, clip
+    return fit_launches, clip, watch
+
+
+def repeat_phase(args, card: str, clip, first) -> None:
+    """Phase 12's fit a second time in this process, on the same clip
+    object with the same seed and configs, held `torch.equal` to the first
+    fit (`first`, its watch hook) after each density event and at the end:
+    every parameter, Adam moment, aux tensor, density statistic and the
+    key. Fails where the two fits part."""
+    import torch
+
+    from splatter_a_video_tpu_torch.train import fit
+
+    fcfg, tcfg = fit_configs(args, FIT_STEPS)
+    events = sorted(k for k in first.snaps if k != "end")
+    watch = fit_watch(events)
+    t0 = time.perf_counter()
+    fit.fit_clip(clip, fcfg, tcfg, hooks=[watch], device=DEVICE)
+    secs = time.perf_counter() - t0
+    parted, sites = None, []
+    for site in events + ["end"]:
+        a, b = first.snaps[site], watch.snaps[site]
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        if differ and parted is None:
+            parted = f"at {'the end' if site == 'end' else f'step {site}'} in {', '.join(differ[:8])}"
+        sites.append(f"{'end' if site == 'end' else f'step {site}'}: alive {first.at[site]} / {watch.at[site]}, "
+                     f"digest {state_digest(a)} / {state_digest(b)}")
+    log("repeat", f"phase 12's fit again ({FIT_STEPS} steps, seed {args.seed}, the same clip object) in {secs:.1f} s; "
+                  "first / second fit: " + "; ".join(sites)
+                  + f"; every tensor torch.equal at every event and at the end: {parted is None}; "
+                  + f"the fits part: {parted or 'nowhere'} {card}")
+    require(parted is None, f"the full-width fit does not repeat: it parts {parted}")
 
 
 def mini_fit_phase(card: str) -> None:
@@ -686,11 +770,12 @@ def blend_instance(tag: str, pr, rc, cpm: float, seed: int, card: str, K: int = 
     bound, by, nbytes, ops = blend_cost("blend_forward", used, b.edges.shape[0], N, C, Wd * Hd, applied, K)
     ms, plain_ms = cuda_ms(lambda: rg.blend_forward(*k1a), cpm), cuda_ms(lambda: rg.blend_forward_plain(*k1a), cpm,
                                                                         PLAIN_REPS)
+    attrs = rg.kernel_attributes("blend_forward", C, tile)
     rows = {"blend_forward": [dict(instance=name, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                                   max_abs_err=err)]}
+                                   max_abs_err=err, **attrs)]}
     log("K1", f"{name} {Wd}x{Hd}: torch.equal on all four outputs: {same}; {nint} intersections of "
               f"{rc.max_intersections}; {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by}: "
-              f"{ops:.3g} flops, {nbytes:.3g} B, {applied} applied pairs) {card}")
+              f"{ops:.3g} flops, {nbytes:.3g} B, {applied} applied pairs); {resources(attrs)} {card}")
     if not backward:
         return rows
     g = torch.randn((Hd, Wd, C), generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
@@ -708,11 +793,14 @@ def blend_instance(tag: str, pr, rc, cpm: float, seed: int, card: str, K: int = 
     bound3, by3, nbytes3, ops3 = blend_cost("blend_backward", used, b.edges.shape[0], N, C, Wd * Hd, applied)
     ms3 = cuda_ms(lambda: rg.blend_backward(*k3a), cpm)
     plain3 = cuda_ms(lambda: rg.blend_backward_plain(*k3a), cpm, PLAIN_REPS)
+    attrs3 = rg.kernel_attributes("blend_backward", C, tile)
+    attrs4 = rg.kernel_attributes("reduce_gaussians", dg.shape[1])
     rows["blend_backward"] = [dict(instance=name, ms=ms3, plain_ms=plain3, bound_ms=bound3, bound_by=by3,
-                                   max_abs_err=err3)]
+                                   max_abs_err=err3, **attrs3)]
     log("K3", f"{name} {Wd}x{Hd}: {used} slots x {dg.shape[1]} rows torch.equal to plain: {same3} (replay "
               f"ncontrib == K1's); K4 on its rows torch.equal to plain: {same4}; K3 {ms3:.4f} ms, plain "
-              f"{plain3:.3f} ms, bound {bound3:.4f} ms ({by3}: {ops3:.3g} flops, {nbytes3:.3g} B) {card}")
+              f"{plain3:.3f} ms, bound {bound3:.4f} ms ({by3}: {ops3:.3g} flops, {nbytes3:.3g} B); K3 "
+              f"{resources(attrs3)}, K4 at R = {dg.shape[1]} {resources(attrs4)} {card}")
     return rows
 
 
@@ -1329,6 +1417,94 @@ def nets_phase(args, dev, card: str) -> None:
     log("nets", busy_line("LPIPS pair", lambda: metrics.lpips(frame, other, device=DEVICE), NET_REPS, 1, lp_ms, card))
 
 
+def helpers_phase(args, dev, card: str, scene) -> None:
+    """Phase 22: the loss library on the card at the flagship shapes,
+    against the port's CPU path on the same inputs: the first-K entropy
+    and blend on the ids of the flagship frame at t = 0 (K1 at K_idx 10),
+    the depth correlation, scale-shift-invariant and range losses on its
+    rendered depth, the feature smoothness over the scene's positions and
+    the distortion loss. Values to rel HELPERS_RTOL, gradients to the
+    gradient bars, each gradient run twice on the card and held
+    `torch.equal`; the smoothness loss's neighbours must be equal on both
+    sides before its values are compared."""
+    import torch
+
+    from splatter_a_video_tpu_torch import inference
+    from splatter_a_video_tpu_torch.models import camera
+    from splatter_a_video_tpu_torch.ops import rasterize, sh
+    from splatter_a_video_tpu_torch.train import losses, prng
+
+    cam = camera.canonical_camera(W, H)
+    rcfg = rasterize.RasterizeConfig(width=W, height=H, max_intersections=MAX_INTERSECTIONS, K_idx=HELPERS_K)
+    with torch.no_grad():
+        out = inference.render_frame(scene, HELPERS_T, cam.extrinsic, rcfg, device=DEVICE)
+        gs_idx, depth = out.gs_idx, out.features["depth"][..., 0].contiguous()
+        opacity = scene.get_opacity().reshape(-1).contiguous()
+        rgb = sh.sh_to_rgb(scene.params["features_dc"][:, 0]).contiguous()
+        positions = scene.get_position(HELPERS_T).contiguous()
+    require(gs_idx.shape == (H, W, HELPERS_K) and bool((gs_idx >= 0).any()),
+            f"first-K ids of shape {tuple(gs_idx.shape)}")
+    rng = np.random.RandomState(args.seed + 22)
+    seeded = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+    target = seeded(depth.cpu().numpy() * 1.3 + 0.1 + rng.randn(H, W) * 0.05)
+    key = prng.key(args.seed + 22)
+    edges = seeded(np.sort(rng.rand(H * W, HELPERS_BINS + 1), axis=-1))
+    cases = [   # name, fn, inputs, the inputs whose gradients are taken
+        ("entropy_loss", losses.entropy_loss, (opacity, gs_idx), (0,)),
+        ("alpha_blending_firstK", losses.alpha_blending_firstK,
+         (rgb, gs_idx, seeded(rng.rand(H, W, HELPERS_K))), (0, 2)),
+        ("depth_correlation_loss", lambda g, d: losses.depth_correlation_loss(g, d, HELPERS_PATCH, HELPERS_PATCHES,
+                                                                               key), (target, depth), (1,)),
+        ("scale_shift_invariant_depth_loss", losses.scale_shift_invariant_depth_loss, (depth, target), (0,)),
+        ("depth_range_loss", lambda d: losses.depth_range_loss(d, *HELPERS_DEPTH_RANGE), (depth,), (0,)),
+        ("smoothness_loss", lambda p, a: losses.smoothness_loss(p, key, None, HELPERS_KNN, HELPERS_SAMPLES, a),
+         (positions, scene.alive), (0,)),
+        ("distortion_loss", losses.distortion_loss, (edges, seeded(rng.rand(H * W, HELPERS_BINS))), (0, 1)),
+    ]
+
+    # the smoothness loss's neighbours first: the same samples and kNN on both sides
+    idx_dev = losses.arap_sample(CAPACITY, HELPERS_SAMPLES, scene.alive, key, dev)
+    idx_cpu = losses.arap_sample(CAPACITY, HELPERS_SAMPLES, scene.alive.cpu(), key, "cpu")
+    nn_dev = losses.arap_connectivity(positions, k=HELPERS_KNN, query_idx=idx_dev, alive=scene.alive)
+    nn_cpu = losses.arap_connectivity(positions.cpu(), k=HELPERS_KNN, query_idx=idx_cpu, alive=scene.alive.cpu())
+    bad_rows = int((nn_dev[0].cpu() != nn_cpu[0]).any(1).sum())
+    require(torch.equal(idx_dev.cpu(), idx_cpu), "smoothness_loss: the samples differ between the card and the CPU")
+    require(bad_rows == 0 and torch.equal(nn_dev[2].cpu(), nn_cpu[2]),
+            f"smoothness_loss: the neighbours of {bad_rows} of {HELPERS_SAMPLES} samples differ between the card and "
+            "the CPU (distances rounded, or equal ones ordered, otherwise)")
+
+    def run(fn, inputs, grad_of, seed):
+        """fn's output and the gradients of a seeded weighting of it."""
+        leaves = [x.detach().clone().requires_grad_(i in grad_of) for i, x in enumerate(inputs)]
+        v = fn(*leaves)
+        wt = torch.from_numpy(np.asarray(np.random.RandomState(seed).rand(*v.shape), np.float32)).to(v.device)
+        grads = torch.autograd.grad((v * wt).sum(), [leaves[i] for i in grad_of])
+        return v.detach(), [g.detach() for g in grads]
+
+    parts = []
+    for i, (name, fn, inputs, grad_of) in enumerate(cases):
+        seed = args.seed + 220 + i
+        v1, g1 = run(fn, inputs, grad_of, seed)
+        v2, g2 = run(fn, inputs, grad_of, seed)
+        vc, gc = run(fn, [x.cpu() for x in inputs], grad_of, seed)
+        torch.cuda.synchronize()
+        same = torch.equal(v1, v2) and all(torch.equal(a, b) for a, b in zip(g1, g2))
+        rel = (v1.cpu() - vc).abs().max().item() / max(vc.abs().max().item(), 1e-30)
+        worst = max(((a.cpu() - b).abs() / (GRAD_ATOL + GRAD_RTOL * b.abs())).max().item() for a, b in zip(g1, gc))
+        finite = bool(torch.isfinite(v1).all()) and all(bool(torch.isfinite(g).all()) for g in g1)
+        require(finite, f"{name}: not finite on the card")
+        require(rel <= HELPERS_RTOL, f"{name}: the card against the CPU at rel {rel:.3g} > {HELPERS_RTOL}")
+        require(worst <= 1.0, f"{name}: gradients, the card against the CPU at {worst:.3g} of the bar")
+        require(same, f"{name}: two runs on the card differ")
+        ms = wall_ms(lambda: run(fn, inputs, grad_of, seed), reps=REPS)
+        parts.append(f"{name} {ms:.3f} ms (value rel {rel:.2g}, gradients {worst:.2g} of the bar, repeat "
+                     "torch.equal)")
+    log("helpers", f"flagship frame t={HELPERS_T} at K_idx {HELPERS_K} ({int((gs_idx >= 0).sum())} of "
+                   f"{gs_idx.numel()} first-K ids set, the rest -1), {int(scene.num_alive)} alive of {CAPACITY}; the smoothness "
+                   f"loss's {HELPERS_SAMPLES} samples x {HELPERS_KNN} neighbours equal on the card and the CPU; "
+                   f"value + gradients, median wall of {REPS} with a synchronize: " + "; ".join(parts) + f" {card}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1767,7 +1943,9 @@ def main() -> int:
                  f"K2 expand_intersections: {resources(attrs['expand_intersections'])} {card}")
 
     # ---- 12-14. the fit at full width, the mini-fit bands, the CLI -----------
-    fit_launches, fit_clip_data = fit_phase(args, dev, card)
+    fit_launches, fit_clip_data, fit_watch_first = fit_phase(args, dev, card)
+    repeat_phase(args, card, fit_clip_data, fit_watch_first)
+    del fit_watch_first
     mini_fit_phase(card)
     cli_phase(card)
 
@@ -1781,6 +1959,9 @@ def main() -> int:
     dp_launches = dp_phase(args, dev, card, scene)
     shard_launches = shard_phase(args, dev, card, scene)
     nets_phase(args, dev, card)
+
+    # ---- 22. the loss library on the card ------------------------------------
+    helpers_phase(args, dev, card, scene)
 
     kernels = [
         {"name": "blend_forward", "route": "cuda",

@@ -332,3 +332,40 @@ class VideoFlowData:
             out_pts.append(seq)
             out_cols.append(colors[valid])
         return np.concatenate(out_pts, axis=0), np.concatenate(out_cols, axis=0)
+
+
+# depth -> point / normal helpers (the reference's `video3Dflow/utils.py`
+# ships them unused; kept as the JAX package keeps them)
+
+
+def depth_to_points_world(depth: np.ndarray, intrinsic: np.ndarray, extrinsic: np.ndarray) -> np.ndarray:
+    """Unproject a depth image [H, W] to world points [H*W, 3]: pixel
+    centres on the (size - 1)-normalised grid, K^-1 backprojection, then the
+    inverse of the 4x4 world->camera extrinsic."""
+    H, W = depth.shape
+    x = np.arange(W, dtype=np.float32) / (W - 1)
+    y = np.arange(H, dtype=np.float32) / (H - 1)
+    yy, xx = np.meshgrid(y, x, indexing="ij")
+    cam_xy = np.stack([xx * (W - 1), yy * (H - 1)], axis=-1) * depth[..., None]
+    cam_xyz = np.concatenate([cam_xy, depth[..., None]], axis=-1)
+    cam_xyz = cam_xyz.reshape(-1, 3) @ np.linalg.inv(intrinsic.T)
+    ones = np.ones((cam_xyz.shape[0], 1), cam_xyz.dtype)
+    world = np.concatenate([cam_xyz, ones], axis=-1) @ np.linalg.inv(extrinsic).T
+    return world[:, :3]
+
+
+def points_to_normals(xyz: np.ndarray) -> np.ndarray:
+    """Central-difference unit normals of an organised point image
+    [H, W, 3], with a one-pixel zero border."""
+    lr = xyz[1:-1, 2:, :] - xyz[1:-1, :-2, :]
+    bt = xyz[:-2, 1:-1, :] - xyz[2:, 1:-1, :]
+    n = np.cross(lr, bt)
+    n = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-12)
+    out = np.zeros_like(xyz)
+    out[1:-1, 1:-1, :] = n
+    return out
+
+
+def normal_from_depth_image(depth: np.ndarray, intrinsic: np.ndarray, extrinsic: np.ndarray) -> np.ndarray:
+    """Normals [H, W, 3] of a depth image through its world points."""
+    return points_to_normals(depth_to_points_world(depth, intrinsic, extrinsic).reshape(*depth.shape, 3))

@@ -71,6 +71,12 @@ def canonical_camera(width: int, height: int) -> Camera:
     return Camera(width=width, height=height)
 
 
+def canonical_camera_from_focal(width: int, height: int, focal: float) -> Camera:
+    """Identity-pose camera whose two fields of view come from one focal
+    length in pixels."""
+    return Camera(width=width, height=height, fovx=focal2fov(focal, width), fovy=focal2fov(focal, height))
+
+
 def look_at_rotation(
     camera_position: np.ndarray,
     at: np.ndarray = np.zeros(3),
@@ -104,6 +110,27 @@ def orbit_cameras(
         pos = np.array([radius * math.cos(ang), radius * math.sin(ang), 0.0], np.float32)
         R = look_at_rotation(pos, at)
         cams.append(base.with_pose(R, -R @ pos))
+    return tuple(cams)
+
+
+def dolly_path(base: Camera, num: int, z_range: Tuple[float, float] = (-0.3, 0.0)) -> Tuple[Camera, ...]:
+    """Dolly: `base`'s rotation, translated along the view axis from
+    z_range[0] to z_range[1] in `num` even steps."""
+    cams = []
+    for i in range(num):
+        z = z_range[0] + (z_range[1] - z_range[0]) * i / max(num - 1, 1)
+        cams.append(base.with_pose(base.R, np.array([0.0, 0.0, -z], np.float32)))
+    return tuple(cams)
+
+
+def zoom_path(base: Camera, num: int, fov_scale: Tuple[float, float] = (1.0, 0.7)) -> Tuple[Camera, ...]:
+    """Zoom: `base`'s pose with both fields of view scaled from
+    fov_scale[0] to fov_scale[1] in `num` even steps; fovy None stays None."""
+    cams = []
+    for i in range(num):
+        s = fov_scale[0] + (fov_scale[1] - fov_scale[0]) * i / max(num - 1, 1)
+        cams.append(Camera(base.width, base.height, base.R, base.t, base.fovx * s,
+                           None if base.fovy is None else base.fovy * s))
     return tuple(cams)
 
 

@@ -19,6 +19,46 @@ def _pairwise_sq_dists(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(qq + pp - 2.0 * (q @ p.T), 0.0)
 
 
+def sq_dists_fma(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """|q - p|^2 over the last axis (3) of broadcastable q and p, with the
+    bits of `_pairwise_sq_dists` on a CPU (|q|^2 + |p|^2 - 2 q.p, whose
+    GEMM there rounds the 3-term dot as the chain fma(q2, p2, fma(q1, p1,
+    q0 p0)), as XLA's does) on every device. Each fused multiply-add is
+    formed in float64, where the product of two float32s is exact, then
+    rounded to float32 (a double rounding that differs from one fused
+    rounding only at exact halfway cases). cuBLAS splits the dot
+    otherwise, so a GEMM on the card can swap two neighbours at a near-tie
+    that the CPU orders the other way."""
+    dot = q[..., 0] * p[..., 0]
+    for i in (1, 2):
+        wide = q[..., i].double() * p[..., i].double()
+        wide += dot
+        dot = wide.float()
+    sq = lambda x: (x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1]) + x[..., 2] * x[..., 2]
+    return torch.clamp_min(sq(q) + sq(p) - 2.0 * dot, 0.0)
+
+
+def smallest_k(d2: torch.Tensor, k: int) -> torch.Tensor:
+    """Column indices [S, k] of the k smallest entries of each row of d2
+    [S, N], ordered by value and, among equal values, by descending index:
+    the same on every device. (`torch.topk` picks and orders equal values
+    in an order of its own, on the card another than on the CPU.) Of the
+    orders that are the same everywhere, this one stays nearest the JAX
+    package's own fit on the lifted points' exact ties
+    (`tests/test_torch_fit.py::test_fit_end_state_matches`)."""
+    vals, idx = torch.topk(d2, k, dim=1, largest=False)   # the values are the same on every device
+    thr = vals[:, -1:]                           # the k-th smallest value of each row
+    n_less = (vals < thr).sum(1, keepdim=True)   # every entry below it is among the k
+    cols = torch.arange(d2.shape[1], dtype=torch.int32, device=d2.device)
+    tied = torch.topk(torch.where(d2 == thr, cols, -1), k, dim=1).values.long()   # highest first
+    j = torch.arange(k, device=d2.device)[None, :]
+    out = torch.where(j < n_less, idx, torch.gather(tied, 1, (j - n_less).clamp_min(0)))
+    # canonical order: descending index, then a stable sort by value
+    out = torch.sort(out, dim=1, descending=True).values
+    order = torch.sort(torch.gather(d2, 1, out), dim=1, stable=True).indices
+    return torch.gather(out, 1, order)
+
+
 def knn(query: torch.Tensor, points: torch.Tensor, k: int,
         chunk: int = 2048) -> Tuple[torch.Tensor, torch.Tensor]:
     """k nearest neighbours of `query` among `points`: (sq_dists [Q,k],

@@ -65,6 +65,21 @@ def rotmat_to_quat(R: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return quat_normalize(out)
 
 
+def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of quaternions (w,x,y,z). [..., 4] x [..., 4]."""
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack(
+        [
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ],
+        dim=-1,
+    )
+
+
 def build_cov3d(scaling: torch.Tensor, rotation: torch.Tensor, visible=None) -> torch.Tensor:
     """3D covariance 6-vector from scale [N,3] + quaternion [N,4] (any norm).
 
@@ -90,6 +105,19 @@ def build_cov3d(scaling: torch.Tensor, rotation: torch.Tensor, visible=None) -> 
     if visible is not None:
         cov6 = cov6 * visible.reshape(visible.shape[0], 1).to(cov6.dtype)
     return cov6
+
+
+def cov6_to_mat(cov6: torch.Tensor) -> torch.Tensor:
+    """Covariance 6-vector -> symmetric [..., 3, 3] matrix."""
+    xx, xy, xz, yy, yz, zz = cov6.unbind(-1)
+    return torch.stack(
+        [
+            torch.stack([xx, xy, xz], dim=-1),
+            torch.stack([xy, yy, yz], dim=-1),
+            torch.stack([xz, yz, zz], dim=-1),
+        ],
+        dim=-2,
+    )
 
 
 def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:

@@ -30,6 +30,10 @@ SH_C3 = (
 )
 
 
+def num_sh_bases(deg: int) -> int:
+    return (deg + 1) ** 2
+
+
 def _eval_sh_basis(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     """Raw SH polynomial: sh [..., K, C] (K >= (deg+1)^2), dirs [..., 3] -> [..., C]."""
     if not 0 <= deg <= 3:
@@ -77,6 +81,16 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor, visible=None) -> tor
     if visible is not None:
         colors = colors * visible.reshape(sh.shape[0], 1).to(colors.dtype)
     return colors
+
+
+def eval_sh_free(deg: int, sh: torch.Tensor, dirs: torch.Tensor, visible=None) -> torch.Tensor:
+    """The raw basis [N, C], with no +0.5 offset and no clamp (the
+    reference's `compute_sh_free.cu`, for non-colour feature fields); rows
+    with `visible` false are zero."""
+    out = _eval_sh_basis(deg, sh, dirs)
+    if visible is not None:
+        out = out * visible.reshape(sh.shape[0], 1).to(out.dtype)
+    return out
 
 
 def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:

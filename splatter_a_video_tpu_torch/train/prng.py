@@ -16,10 +16,10 @@ not:
     fused multiply-adds emulated the same way) to the same uniforms; its
     log1p may differ from XLA's, which leaves ~1% of the draws a few ulps
     off;
-  * `choice` with probabilities inverts a float32 cumulative sum, which
-    JAX forms in another order, so a draw that lands within rounding of
-    a bin edge may pick the neighbouring index (rare: a bin edge within
-    ~1e-7 of a uniform draw).
+  * `choice` with probabilities inverts float32 prefix sums formed
+    exactly (`prefix_sums`), where JAX adds in float32, so a draw that
+    lands within rounding of a bin edge may pick the neighbouring index
+    (rare: a bin edge within ~1e-7 of a uniform draw).
 """
 
 from __future__ import annotations
@@ -130,12 +130,25 @@ def normal(k: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     return torch.tensor(np.sqrt(2), dtype=torch.float32) * _erfinv(u)
 
 
+def prefix_sums(p: torch.Tensor) -> torch.Tensor:
+    """Float32 prefix sums of the probabilities p [n] (entries in [0, 1]),
+    with the same bits in every run and on every device: the sums are
+    formed exactly in int64 fixed point of 2^-(62 - bit_length(n)), then
+    rounded. (`torch.cumsum` of floats on the card adds in an order that
+    changes from run to run.) Entries of at least 2^-(38 - bit_length(n))
+    are exact in that fixed point; smaller ones lose their low bits."""
+    frac_bits = 62 - max(p.shape[0].bit_length(), 1)
+    fixed = torch.floor(p.to(torch.float64) * 2.0**frac_bits).to(torch.int64)
+    return (torch.cumsum(fixed, 0).to(torch.float64) * 2.0**-frac_bits).to(torch.float32)
+
+
 def choice(k: torch.Tensor, n: int, shape: Sequence[int], p: torch.Tensor) -> torch.Tensor:
     """`jax.random.choice(k, n, shape, replace=True, p=p)`: int64 indices
-    on p's device, drawn by inverting the cumulative sum of p."""
+    on p's device, drawn by inverting the prefix sums of the probabilities
+    p (`prefix_sums`)."""
     if tuple(p.shape) != (n,):
         raise ValueError(f"p has shape {tuple(p.shape)}, expected ({n},)")
-    p_cuml = torch.cumsum(p.to(torch.float32), 0)
+    p_cuml = prefix_sums(p)
     r = p_cuml[-1] * (1.0 - to_device(uniform(k, shape), p.device))
     return torch.searchsorted(p_cuml, r)
 

@@ -204,8 +204,9 @@ def make_arg_parser() -> argparse.ArgumentParser:
                    help="use the built-in synthetic clip (no datadir needed)")
     p.add_argument("--refine_camera", type=int, default=0,
                    help="jointly optimize per-frame se(3) camera twists "
-                        "with the scene; not ported yet (raises, ROADMAP "
-                        "A.15)")
+                        "with the scene (train/camera_refine.py); the twists "
+                        "are written to out_dir/camera_xi.npy, and to "
+                        "out_dir/camera_refine.pt for --resume")
     p.add_argument("--camera_lr", type=float, default=1e-4,
                    help="Adam lr for the camera twists (--refine_camera)")
     p.add_argument("--camera_warmup", type=int, default=0,
@@ -213,8 +214,9 @@ def make_arg_parser() -> argparse.ArgumentParser:
                         "camera lr boosted 10x (recover bad initial poses "
                         "before the scene absorbs them)")
     p.add_argument("--distributed", type=int, default=0,
-                   help="data-parallel over all local devices; not ported "
-                        "yet (raises, ROADMAP A.16)")
+                   help="data-parallel over torch.distributed ranks, one "
+                        "process per GPU (launch with torchrun); at world "
+                        "size 1 the plain step")
     p.add_argument("--dataset_types", type=str, default="simpleGS",
                    help="'+'-joined pair-sampling policies "
                         "(simpleGS/gaussian/flow/point), reference "

@@ -20,6 +20,7 @@ arrays) and inputs:
     strict mode names unconsumed keys.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -35,6 +36,20 @@ from splatter_a_video_tpu_torch.nets import interp as tinterp
 from splatter_a_video_tpu_torch.nets import tapir as ttapir
 
 from test_torch_fit import one_thread  # noqa: F401  (module fixture: one CPU thread)
+
+
+@pytest.fixture(autouse=True)
+def empty_jax_caches():
+    """The JAX package's `depth_anything._infer` and `tapir._infer` jits
+    take the model as a static argument compared by its array fields, and
+    JAX's trace cache compares a new model with a cached one of the same
+    structure, which raises `ValueError`. Whether two models meet in one
+    process depends on which test files one worker runs (the JAX
+    package's own network tests too), so each test here starts and ends
+    with JAX's caches empty."""
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
 
 
 def tiny_da_cfg(mod):

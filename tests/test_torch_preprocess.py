@@ -23,7 +23,7 @@ from splatter_a_video_tpu_torch.nets import depth_anything as tda
 from splatter_a_video_tpu_torch.nets import tapir as ttapir
 
 from test_torch_fit import one_thread  # noqa: F401  (module fixture: one CPU thread)
-from test_torch_nets import tiny_da_cfg
+from test_torch_nets import empty_jax_caches, tiny_da_cfg  # noqa: F401  (autouse fixture)
 
 iio = pytest.importorskip("imageio.v2")
 
