@@ -53,13 +53,20 @@ and holds each against its plain PyTorch version at the flagship shapes
      invariant and range losses on its depth, the feature smoothness over
      the scene's positions and the distortion loss, each against the CPU
      (values and gradients) and each gradient twice on the card,
-     `torch.equal`.
+     `torch.equal`;
+  the blend's wide instances (phase 23): ten `make_train_step` steps and a
+     density step at the training shape with a 32-wide DINO attribute
+     blended and supervised (C = 52, R = 60 rows into K4), one
+     `inference.render_frame` with the three render attributes (C = 49),
+     K1, K3 and K4 at C = 33, 52, 64 and 200 and K3 on 32x32 and 12x12
+     tiles (C = 7 and 52), and the 64x48 training render at C = 52 on the
+     card against the CPU.
 
 Every kernel check is `torch.equal` against the plain version.
 
 The launch counters are set to 0 just before each of the main paths (the
 video render, the ten train steps, the fit, each side path's steps, the DP
-steps and the slab render) and read just after; the
+steps, the slab render and the wide train steps) and read just after; the
 kernel table's `launches` are the fit's, one per kernel and step. Each phase
 prints one line; any failure ends the run with a non-zero exit and no
 result line. The `[times]` lines and the kernel table carry each kernel's
@@ -68,7 +75,8 @@ block at the main path's instance (`rasterize_gpu.kernel_attributes`),
 the port's kernels' own times inside the frame and step profiles, and
 beside K2 and K4 the PyTorch calls that do part of their work (the owners
 alone, a fill of K2's outputs, the gather of K4's rows), as references.
-The kernel table's `instances` list the side paths' blend instances. The
+The kernel table's `instances` list the side paths' and phase 23's blend
+instances (K4's beside `index_add_`). The
 line before the last is the kernel table as JSON, the last line
 `{"ok": true, "device": {...}}`. Needs one CUDA device.
 """
@@ -96,7 +104,7 @@ REPS = 20
 DEVICE = "cuda"
 TRAIN_T1, TRAIN_T2, TRAIN_STEPS, TRACKS = 7, 23, 10, 4096
 TRAIN_MASK = (1.0, 1.0, 1.0, 1.0, 0.0, 0.0, 0.0)   # rgb 3, depth 1 reach opacity; track_gs 3 not
-WIDE_C = 32             # the largest channel bucket of K1 and K3
+WIDE_C = 32             # the largest channel bucket of K1 (and of K3 above 256 pixels)
 GRAD_ATOL, GRAD_RTOL = 3e-4, 2e-3   # gradients, the bars of tests/test_rasterize.py
 PLAIN_REPS = 3          # the plain versions read counts back, so each run waits for the card
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
@@ -135,15 +143,22 @@ DA_TOL, TAPIR_ATOL, TAPIR_RTOL, LPIPS_RTOL = 1e-3, 5e-3, 1e-3, 2e-4
 HELPERS_T, HELPERS_K, HELPERS_RTOL = 0.0, 10, 1e-4
 HELPERS_PATCH, HELPERS_PATCHES, HELPERS_SAMPLES, HELPERS_KNN, HELPERS_BINS = 32, 128, 512, 10, 8
 HELPERS_DEPTH_RANGE = (0.8, 1.5)
+# phase 23, the blend's wide instances: the training shape with a 32-wide DINO attribute (C = 52, R = 60),
+# its render (C = 49), and K1 / K3 / K4 at more widths and tiles (16x16 unless given)
+WIDE_DINO, WIDE_STEPS = 32, 10
+WIDE_ATTR_WEIGHT = 20.0          # mask and DINO supervision: the reference's weight (train/trainer.py)
+WIDE_CS = (33, 52, 64, 200)      # K1, K3 and K4 on 16x16 tiles
+WIDE_TILES = ((7, (32, 32)), (52, (32, 32)), (7, (12, 12)))   # K3 above 512 pixels, and not whole warps
 
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def flagship_scene_arrays(seed: int):
+def flagship_scene_arrays(seed: int, dino: int = 3):
     """Random flagship scene (positions as bench.py's render bench) with a
-    cubic-spline trajectory fitted to a smooth synthetic track."""
+    cubic-spline trajectory fitted to a smooth synthetic track and a
+    `dino`-wide DINO attribute."""
     from splatter_a_video_tpu_torch.models.trajectory import fit_cubic_spline
 
     rng = np.random.RandomState(seed)
@@ -175,7 +190,7 @@ def flagship_scene_arrays(seed: int):
         "rot_poly_feat": full((4, 4), rng.randn(n, 4, 4) * 0.05),
         "rot_fourier_feat": full((8, 4), rng.randn(n, 8, 4) * 0.05),
         "mask_attribute": full((1,), rng.randn(n, 1)),
-        "dino_attribute": full((3,), rng.randn(n, 3)),
+        "dino_attribute": full((dino,), rng.randn(n, dino)),
         "pos_cubic_coeff": full(coeff.shape[1:], coeff),
     }
     params["position"][n:] = (0.0, 0.0, -10.0)   # dead slots parked behind the camera
@@ -183,7 +198,7 @@ def flagship_scene_arrays(seed: int):
     aux = {"alive": np.arange(cap) < n, "spline_knots": knots}
     cfg = dict(
         capacity=cap, num_frames=FRAMES, traj="cubic_spline",
-        render_attributes=(("mask_attribute", 1), ("pos_poly_feat", 3), ("dino_attribute", 3)),
+        render_attributes=(("mask_attribute", 1), ("pos_poly_feat", 3), ("dino_attribute", dino)),
     )
     return params, aux, cfg
 
@@ -221,16 +236,18 @@ def train_batch_arrays(seed: int):
                 track_valid=np.ones(TRACKS, bool))
 
 
-def small_train_scene(seed: int, n: int = 120):
+def small_train_scene(seed: int, n: int = 120, dino: int = 0):
     """A 64x48-sized poly_fourier scene from `create_scene` on the CPU, with
-    random shapes, opacities below 0.9 and motion, for the gradient check."""
+    random shapes, opacities below 0.9 and motion, for the gradient check;
+    with `dino`, also random mask and `dino`-wide DINO render attributes."""
     import torch
 
     from splatter_a_video_tpu_torch.models import gaussians
 
     rng = np.random.RandomState(seed + 3)
     pos = np.concatenate([rng.uniform(-0.9, 0.9, (n, 2)), rng.uniform(0.5, 2.0, (n, 1))], 1)
-    cfg = gaussians.SceneConfig(capacity=n + 16, num_frames=8, traj="poly_fourier")
+    attrs = (("mask_attribute", 1), ("pos_poly_feat", 3), ("dino_attribute", dino)) if dino else ()
+    cfg = gaussians.SceneConfig(capacity=n + 16, num_frames=8, traj="poly_fourier", render_attributes=attrs)
     scene = gaussians.create_scene(cfg, pos.astype(np.float32), rng.uniform(0, 1, (n, 3)),
                                    init_opacity=0.3, device="cpu")
     p = dict(scene.params)
@@ -242,12 +259,16 @@ def small_train_scene(seed: int, n: int = 120):
     p["features_rest"] = rand(*p["features_rest"].shape, s=0.1)
     p["pos_poly_feat"] = rand(*p["pos_poly_feat"].shape, s=0.01)
     p["rot_fourier_feat"] = rand(*p["rot_fourier_feat"].shape, s=0.05)
+    for name, _ in attrs:
+        if name != "pos_poly_feat":
+            p[name] = rand(*p[name].shape)
     return gaussians.GaussianScene(params=p, aux=scene.aux, cfg=cfg)
 
 
-def render_grads(scene, dev, seed: int):
-    """Gradients of a fixed random linear loss on the 64x48 training render
-    (rgb, depth, track_gs) with respect to every parameter and both sinks."""
+def render_grads(scene, dev, seed: int, extra_names=()):
+    """The 64x48 training render (rgb, depth, track_gs and the render
+    attributes `extra_names`) and the gradients of a fixed random linear
+    loss on it with respect to every parameter and both sinks."""
     import torch
 
     from splatter_a_video_tpu_torch.models import camera
@@ -261,14 +282,17 @@ def render_grads(scene, dev, seed: int):
     n = scene.alive.shape[0]
     uv_sink = torch.zeros((n, 2), device=dev, requires_grad=True)
     abs_sink = torch.zeros((n, 2), device=dev, requires_grad=True)
-    out = trainer._render_with_sinks(trainer.scene_render_inputs(sc, 2), extr, tcfg.raster_cfg(),
-                                     {"track_gs": sc.get_position(5)}, True, uv_sink, abs_sink)
+    inp = trainer.scene_render_inputs(sc, 2)
+    out = trainer._render_with_sinks(inp, extr, tcfg.raster_cfg(),
+                                     {"track_gs": sc.get_position(5), **{k: inp[k] for k in extra_names}}, True,
+                                     uv_sink, abs_sink)
     rng = np.random.RandomState(seed + 4)
     loss = sum((v * torch.from_numpy(rng.randn(*v.shape).astype(np.float32)).to(dev)).sum()
                for v in out.features.values())
     names = list(params) + ["uv_sink", "abs_sink"]
     grads = torch.autograd.grad(loss, list(params.values()) + [uv_sink, abs_sink], allow_unused=True)
-    return {k: (torch.zeros(1) if g is None else g.detach().cpu()) for k, g in zip(names, grads)}
+    return ({k: (torch.zeros(1) if g is None else g.detach().cpu()) for k, g in zip(names, grads)},
+            {k: v.detach().cpu() for k, v in out.features.items()})
 
 
 def sleep_cycles_per_ms() -> float:
@@ -722,31 +746,61 @@ def cli_phase(card: str) -> None:
                "engages it on a track directory written with np.save; 16 rows of 37, each a row of its file")
 
 
-def blend_cost(kernel: str, nint: int, n_edges: int, N: int, C: int, pixels: int, applied: int, K: int = 0):
+def pixel_tests(edges, W: int, H: int, tile) -> int:
+    """Slot-pixel tests the blend of this binning needs: each slot of a tile
+    against each of the tile's pixels inside the W x H frame (edge tiles
+    hold fewer)."""
+    import torch
+
+    tw, th = tile
+    tgx, tgy = -(-W // tw), -(-H // th)
+    wx = torch.clamp(W - torch.arange(tgx, device=edges.device) * tw, max=tw)
+    hy = torch.clamp(H - torch.arange(tgy, device=edges.device) * th, max=th)
+    slots = (edges[1:tgx * tgy + 1] - edges[:tgx * tgy]).long()
+    return int((slots * (hy[:, None] * wx[None, :]).reshape(-1)).sum())
+
+
+def blend_cost(kernel: str, nint: int, edges, W: int, H: int, tile, N: int, C: int, applied: int, K: int = 0):
     """(bound ms, "bytes" or "operations", bytes, flops) of K1 or K3 on
     these inputs: each input read once and each output written once, and
     the work these inputs need (every pixel of a tile tests every slot of
-    the tile; the applied pairs blend C channels, or back-propagate them)."""
+    the tile, `pixel_tests`; the applied pairs blend C channels, or
+    back-propagate them)."""
     R = 8 + C
+    pixels, n_edges, tests = W * H, edges.shape[0], pixel_tests(edges, W, H, tile)
     if kernel == "blend_forward":
         nbytes = 4 * nint + 4 * n_edges + N * (8 + 12 + 4 + 4 * C) + 4 * C + pixels * (C + 2 + K) * 4
-        ops = 256 * nint * 15 + applied * 2 * C
+        ops = tests * 15 + applied * 2 * C
     else:
         nbytes = (4 * nint + 4 * n_edges + N * (8 + 12 + 4 + 4 * C) + 8 * C + pixels * (2 * C + 1) * 4
                   + nint * R * 4)
-        ops = 256 * nint * 15 + applied * (40 + 5 * C + R)
+        ops = tests * 15 + applied * (40 + 5 * C + R)
     by = "operations" if ops / FP32_FLOPS_PER_S > nbytes / HBM_BYTES_PER_S else "bytes"
     return max(nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S) * 1e3, by, nbytes, ops
 
 
-def blend_instance(tag: str, pr, rc, cpm: float, seed: int, card: str, K: int = 0, backward: bool = True):
+def blend_instance(tag: str, pr, rc, cpm: float, seed: int, card: str, K: int = 0, backward: bool = True,
+                   plain_reps: int = PLAIN_REPS):
     """K1 (and K3, then K4 on K3's rows) at the blend of the projection `pr`
     under `rc`: each `torch.equal` to its plain version, timed, with its
-    bound. Returns {kernel: [instance row]} for the kernel table."""
+    bound; K4 also beside `index_add_`. With `plain_reps` 0 a plain
+    version's time is the wall of its one call (the plain versions read
+    counts back, so they wait for the card as they run). Returns {kernel:
+    [instance row]} for the kernel table."""
     import torch
 
     from splatter_a_video_tpu_torch.ops import binning
     from splatter_a_video_tpu_torch.ops import rasterize_gpu as rg
+
+    def plain(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def plain_ms(fn, once_ms):
+        return cuda_ms(fn, cpm, plain_reps) if plain_reps else once_ms
 
     dev = pr.uv.device
     Wd, Hd, tile = rc.width, rc.height, rc.block
@@ -759,48 +813,61 @@ def blend_instance(tag: str, pr, rc, cpm: float, seed: int, card: str, K: int = 
                                   rc.max_tiles_per_gaussian, rc.block)
     nint = int(b.num_intersections)
     used = min(nint, rc.max_intersections)
-    name = f"{tag} C={C}" + (f" K_idx={K}" if K else "")
+    name = (f"{tag} C={C}" + (f" K_idx={K}" if K else "")
+            + ("" if tuple(tile) == (16, 16) else f" {tile[0]}x{tile[1]}"))
     k1a = (b.gid, b.edges, pr.uv, pr.conic, pr.opacity, feats, bg, Wd, Hd, tile, K)
-    out, ref = rg.blend_forward(*k1a), rg.blend_forward_plain(*k1a)
-    torch.cuda.synchronize()
+    out = rg.blend_forward(*k1a)
+    ref, plain1 = plain(lambda: rg.blend_forward_plain(*k1a))
     same = all(torch.equal(a, r) for a, r in zip(out, ref))
     err = max((out[0] - ref[0]).abs().max().item(), (out[1] - ref[1]).abs().max().item())
     require(same and torch.isfinite(out[0]).all().item(), f"K1 {name} differs from plain")
     applied = int(out[2].sum())
-    bound, by, nbytes, ops = blend_cost("blend_forward", used, b.edges.shape[0], N, C, Wd * Hd, applied, K)
-    ms, plain_ms = cuda_ms(lambda: rg.blend_forward(*k1a), cpm), cuda_ms(lambda: rg.blend_forward_plain(*k1a), cpm,
-                                                                        PLAIN_REPS)
+    bound, by, nbytes, ops = blend_cost("blend_forward", used, b.edges, Wd, Hd, tile, N, C, applied, K)
+    ms, plain_ms1 = cuda_ms(lambda: rg.blend_forward(*k1a), cpm), plain_ms(lambda: rg.blend_forward_plain(*k1a),
+                                                                          plain1)
     attrs = rg.kernel_attributes("blend_forward", C, tile)
-    rows = {"blend_forward": [dict(instance=name, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+    rows = {"blend_forward": [dict(instance=name, ms=ms, plain_ms=plain_ms1, bound_ms=bound, bound_by=by,
                                    max_abs_err=err, **attrs)]}
     log("K1", f"{name} {Wd}x{Hd}: torch.equal on all four outputs: {same}; {nint} intersections of "
-              f"{rc.max_intersections}; {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by}: "
+              f"{rc.max_intersections}; {ms:.4f} ms, plain {plain_ms1:.3f} ms, bound {bound:.4f} ms ({by}: "
               f"{ops:.3g} flops, {nbytes:.3g} B, {applied} applied pairs); {resources(attrs)} {card}")
     if not backward:
         return rows
     g = torch.randn((Hd, Wd, C), generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
     k3a = (b.gid, b.edges, pr.uv, pr.conic, pr.opacity, feats, bg, mask, out[0], out[1], g, Wd, Hd, tile, None)
     dg, nc = rg.blend_backward(*k3a, return_ncontrib=True)
-    dref = rg.blend_backward_plain(*k3a)
-    red = rg.reduce_gaussians(dg, b.order, b.offs, b.tiles)
-    red_p = rg.reduce_gaussians_plain(dg, b.order, b.offs, b.tiles)
-    torch.cuda.synchronize()
+    dref, plain3 = plain(lambda: rg.blend_backward_plain(*k3a))
+    k4a = (dg, b.order, b.offs, b.tiles)
+    red = rg.reduce_gaussians(*k4a)
+    red_p, plain4 = plain(lambda: rg.reduce_gaussians_plain(*k4a))
     same3 = torch.equal(dg[:used], dref[:used]) and torch.equal(nc, out[2])
     same4 = torch.equal(red, red_p)
     err3 = (dg[:used] - dref[:used]).abs().max().item()
     require(same3 and torch.isfinite(dg[:used]).all().item(), f"K3 {name} differs from plain")
     require(same4, f"K4 after K3 {name} differs from plain")
-    bound3, by3, nbytes3, ops3 = blend_cost("blend_backward", used, b.edges.shape[0], N, C, Wd * Hd, applied)
+    del dref
+    R = dg.shape[1]
+    bound3, by3, nbytes3, ops3 = blend_cost("blend_backward", used, b.edges, Wd, Hd, tile, N, C, applied)
     ms3 = cuda_ms(lambda: rg.blend_backward(*k3a), cpm)
-    plain3 = cuda_ms(lambda: rg.blend_backward_plain(*k3a), cpm, PLAIN_REPS)
+    plain3 = plain_ms(lambda: rg.blend_backward_plain(*k3a), plain3)
+    ms4 = cuda_ms(lambda: rg.reduce_gaussians(*k4a), cpm)
+    plain4 = plain_ms(lambda: rg.reduce_gaussians_plain(*k4a), plain4)
+    owner, used_rows = b.gid[:used].long(), dg[:used]
+    lib4 = cuda_ms(lambda: torch.zeros_like(red).index_add_(0, owner, used_rows), cpm)
+    bytes4 = used * (R * 4 + 8) + N * (8 + R * 4)
+    bound4 = max(bytes4 / HBM_BYTES_PER_S, used * R / FP32_FLOPS_PER_S) * 1e3
     attrs3 = rg.kernel_attributes("blend_backward", C, tile)
-    attrs4 = rg.kernel_attributes("reduce_gaussians", dg.shape[1])
+    attrs4 = rg.kernel_attributes("reduce_gaussians", R)
     rows["blend_backward"] = [dict(instance=name, ms=ms3, plain_ms=plain3, bound_ms=bound3, bound_by=by3,
                                    max_abs_err=err3, **attrs3)]
-    log("K3", f"{name} {Wd}x{Hd}: {used} slots x {dg.shape[1]} rows torch.equal to plain: {same3} (replay "
+    rows["reduce_gaussians"] = [dict(instance=f"{name} R={R}", ms=ms4, plain_ms=plain4, library_ms=lib4,
+                                     bound_ms=bound4, bound_by="bytes", max_abs_err=(red - red_p).abs().max().item(),
+                                     **attrs4)]
+    log("K3", f"{name} {Wd}x{Hd}: {used} slots x {R} rows torch.equal to plain: {same3} (replay "
               f"ncontrib == K1's); K4 on its rows torch.equal to plain: {same4}; K3 {ms3:.4f} ms, plain "
               f"{plain3:.3f} ms, bound {bound3:.4f} ms ({by3}: {ops3:.3g} flops, {nbytes3:.3g} B); K3 "
-              f"{resources(attrs3)}, K4 at R = {dg.shape[1]} {resources(attrs4)} {card}")
+              f"{resources(attrs3)}; K4 at R = {R} {ms4:.4f} ms, plain {plain4:.3f} ms, index_add_ {lib4:.4f} ms, "
+              f"bound {bound4:.4f} ms (bytes: {bytes4:.3g} B), {resources(attrs4)} {card}")
     return rows
 
 
@@ -1505,6 +1572,142 @@ def helpers_phase(args, dev, card: str, scene) -> None:
                    f"value + gradients, median wall of {REPS} with a synchronize: " + "; ".join(parts) + f" {card}")
 
 
+def wide_phase(args, dev, card: str, cpm: float):
+    """Phase 23: the blend's wide instances. WIDE_STEPS `make_train_step`
+    steps and a density step at the flagship training shape with a
+    WIDE_DINO-wide DINO attribute blended and supervised (C = 52: rgb 3,
+    depth 1, track_gs 3, mask 1, pos_poly_feat 12, DINO 32; R = 60 rows into
+    K4); one `inference.render_frame` with the three render attributes
+    (C = 49), and K1 on that frame's projection; K1, K3 and K4 at C in
+    WIDE_CS and K3 at the tiles of WIDE_TILES on the training frame, each
+    `torch.equal` to its plain version and timed; and the 64x48 training render at C = 52 on the card
+    against the CPU (render atol ATOL, gradients GRAD_ATOL / GRAD_RTOL).
+    Returns (the kernel instances, the train steps' launch counts)."""
+    import torch
+
+    from splatter_a_video_tpu_torch import convert, inference
+    from splatter_a_video_tpu_torch.models import camera
+    from splatter_a_video_tpu_torch.ops import rasterize
+    from splatter_a_video_tpu_torch.train import trainer
+
+    scene = convert.scene_from_numpy(*flagship_scene_arrays(args.seed, dino=WIDE_DINO), device=DEVICE)
+    cam = camera.canonical_camera(W, H)
+    extr = torch.as_tensor(cam.extrinsic, dtype=torch.float32, device=dev)
+    tcfg = trainer.TrainerConfig(width=W, height=H, num_frames=FRAMES, max_intersections=MAX_INTERSECTIONS,
+                                 train_render_attributes=True, mask_attr_weight=WIDE_ATTR_WEIGHT,
+                                 dino_attr_weight=WIDE_ATTR_WEIGHT)
+    arrays = train_batch_arrays(args.seed)
+    rng = np.random.RandomState(args.seed + 12)
+    arrays["mask1"] = (rng.rand(H, W) < 0.5).astype(np.float32)
+    arrays["dino1"] = rng.uniform(0.0, 1.0, (H, W, WIDE_DINO)).astype(np.float32)
+    batch = trainer.Batch(t1=TRAIN_T1, t2=TRAIN_T2, **{k: torch.from_numpy(v).to(dev) for k, v in arrays.items()})
+
+    with torch.no_grad():
+        inp = trainer.scene_render_inputs(scene, TRAIN_T1)
+        extra = {"track_gs": scene.get_position(TRAIN_T2), **{k: inp[k] for k in EXTRA}}
+
+        def project(tile, names):
+            rc = dataclasses.replace(tcfg, block_x=tile[0], block_y=tile[1]).raster_cfg()
+            return trainer.project_for_training(inp, extr, rc, {k: extra[k] for k in names}, True, 0.0,
+                                                tcfg.depth_bg), rc
+
+        pr, rc16 = project((16, 16), extra)
+        C = sum(v.shape[1] for v, _, _ in pr.feature_groups.values())
+        require(C == 52, f"the wide training blend carries {C} channels, expected 52")
+
+    # ---- the train steps and a density step at C = 52 ----
+    train_step, density_step, _ = trainer.make_train_step(tcfg, cam.extrinsic, device=DEVICE)
+    state = state0 = trainer.init_train_state(tcfg, scene, seed=args.seed, device=DEVICE)
+    torch.cuda.synchronize()
+    reset_launches()
+    history, step_ms = [], []
+    for _ in range(WIDE_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        history.append({k: float(v) for k, v in metrics.items()})
+    launches = read_launches()
+    require(launches == {k: WIDE_STEPS for k in launches}, f"wide train launch counts {launches}")
+    for i, m in enumerate(history):
+        require(all(np.isfinite(v) for v in m.values()), f"wide step {i}: metrics not finite {m}")
+        require(m["num_intersections"] <= MAX_INTERSECTIONS, f"wide step {i} saturated")
+    first, last = history[0], history[-1]
+    for k in ("loss", "loss_rgb", "loss_dino_attr"):
+        require(last[k] < first[k], f"wide {k} did not fall: {first[k]} -> {last[k]}")
+    dense, info = density_step(state)
+    alive_after = int(dense.scene.alive.sum())
+    require(alive_after == int(info.num_alive), f"wide density: alive {alive_after} != {int(info.num_alive)}")
+    require(all(torch.isfinite(v).all().item() for v in dense.scene.params.values()), "wide density: not finite")
+    med = statistics.median(step_ms[1:])
+    log("wide", f"{WIDE_STEPS} steps of make_train_step at {W}x{H}, {ALIVE} alive, C={C} (DINO {WIDE_DINO} blended "
+                f"and supervised, mask too, weight {WIDE_ATTR_WEIGHT:g}), {TRACKS} tracks: {med:.3f} ms/step wall "
+                f"(median of steps 2-{WIDE_STEPS}; all: {', '.join(f'{t:.1f}' for t in step_ms)}); launches "
+                f"{launches}; loss {first['loss']:.5f} -> {last['loss']:.5f}, loss_dino_attr "
+                f"{first['loss_dino_attr']:.5f} -> {last['loss_dino_attr']:.5f}; density step: cloned "
+                f"{int(info.num_cloned)}, split {int(info.num_split)}, pruned {int(info.num_pruned)}, alive "
+                f"{alive_after} == num_alive {card}")
+    log("wide", busy_line(f"wide train step (C={C}), 3 steps", lambda: train_step(state0, batch), 3, 1, med, card))
+    del dense, state
+
+    # ---- one frame with the three render attributes: C = 49 ----
+    rcfg = rasterize.RasterizeConfig(width=W, height=H, max_intersections=MAX_INTERSECTIONS)
+    with torch.no_grad():
+        reset_launches()
+        out = inference.render_frame(scene, TRAIN_T1, cam.extrinsic, rcfg, EXTRA, device=DEVICE)
+        torch.cuda.synchronize()
+        r_launches = read_launches()
+        widths = {k: (v.shape[-1] if v.dim() == 3 else 1) for k, v in out.features.items()}
+        require(sum(widths.values()) == 49 and widths["dino_attribute"] == WIDE_DINO, f"render widths {widths}")
+        require(r_launches == {k: int(k in ("blend_forward", "expand_intersections")) for k in r_launches},
+                f"render launch counts {r_launches}")
+        require(all(torch.isfinite(v).all().item() for v in out.features.values()), "the C = 49 frame")
+        covered = (out.final_T < 0.5).float().mean().item()
+        require(covered > 0.01, f"the C = 49 frame covers {covered:.3%}")
+        frame_ms = wall_ms(lambda: inference.render_frame(scene, TRAIN_T1, cam.extrinsic, rcfg, EXTRA, device=DEVICE),
+                           reps=5)
+    log("wide", f"render_frame at t={TRAIN_T1} with {', '.join(EXTRA)}: C=49 ({widths}), finite, "
+                f"{covered:.1%} covered, launches {r_launches}; {frame_ms:.3f} ms/frame wall {card}")
+
+    # ---- each wide instance against its plain version: first K1 at C = 49
+    # on the render's own projection, then the training frame's ----
+    with torch.no_grad():
+        r_inp, r_extra = inference._scene_inputs(scene, TRAIN_T1, EXTRA)
+        pr_r = rasterize.project_gaussians(r_inp["position"], r_inp["scaling"], r_inp["rotation"],
+                                           r_inp["opacity"], r_inp["shs"], extr, rcfg, extra_features=r_extra)
+        Cr = sum(v.shape[1] for v, _, _ in pr_r.feature_groups.values())
+        require(Cr == 49, f"the render's projection carries {Cr} channels, expected 49")
+        rows = blend_instance("wide render", pr_r, rcfg, cpm, args.seed + 14, card, backward=False, plain_reps=0)
+        del pr_r, r_inp, r_extra
+        base = {k: pr.feature_groups[k] for k in ("rgb", "depth", "track_gs")}
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 13)
+        for Cw in WIDE_CS:
+            groups = dict(pr.feature_groups) if Cw == C else {
+                **base, "random": (torch.rand((pr.uv.shape[0], Cw - 7), generator=gen, device=dev), 0.5, False)}
+            rows = merge_rows(rows, blend_instance("wide", pr._replace(feature_groups=groups), rc16, cpm,
+                                                   args.seed + 14, card, plain_reps=0))
+        for Cw, tile in WIDE_TILES:
+            pr_t, rc_t = project(tile, extra if Cw == C else ("track_gs",))
+            require(sum(v.shape[1] for v, _, _ in pr_t.feature_groups.values()) == Cw, f"{tile} C={Cw}")
+            rows = merge_rows(rows, blend_instance("wide", pr_t, rc_t, cpm, args.seed + 14, card, plain_reps=0))
+            del pr_t
+    torch.cuda.empty_cache()
+
+    # ---- the 64x48 training render at C = 52, card against CPU ----
+    small = small_train_scene(args.seed, dino=WIDE_DINO)
+    (g_gpu, f_gpu), (g_cpu, f_cpu) = (render_grads(small, d, args.seed, EXTRA) for d in (dev, "cpu"))
+    Cs = sum(v.shape[-1] if v.dim() == 3 else 1 for v in f_cpu.values())
+    d_img = max((f_gpu[k] - f_cpu[k]).abs().max().item() for k in f_cpu)
+    worst = max(((g_gpu[k] - g_cpu[k]).abs() / (GRAD_ATOL + GRAD_RTOL * g_cpu[k].abs())).max().item()
+                for k in g_cpu)
+    require(Cs == 52, f"the 64x48 wide render carries {Cs} channels")
+    require(all(torch.isfinite(v).all().item() for v in g_gpu.values()), "64x48 C = 52 gradients not finite")
+    require(d_img <= ATOL and worst <= 1.0, f"64x48 C = 52: render {d_img:.3g}, gradients {worst:.3g} of the bar")
+    log("wide", f"64x48 training render at C={Cs}: card vs CPU render max |diff| {d_img:.3g} (atol {ATOL}); "
+                f"{len(g_cpu)} gradients worst |diff| / (atol {GRAD_ATOL} + rtol {GRAD_RTOL} |cpu|) = {worst:.3g}")
+    return rows, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1706,7 +1909,7 @@ def main() -> int:
         busy_ms, top, ours = device_profile(frame, reps=5)
     N = CAPACITY
     applied = int(k1_out[2].sum())
-    k1_bound, k1_by, k1_bytes, k1_ops = blend_cost("blend_forward", nint, tgx * tgy + 1, N, C, H * W, applied)
+    k1_bound, k1_by, k1_bytes, k1_ops = blend_cost("blend_forward", nint, b.edges, W, H, rcfg.block, N, C, applied)
     # K2 must read every Gaussian's tile count, and offs, rect_min,
     # rect_max.x and depth of those with tiles; it writes every slot once
     k2_live = int((tiles > 0).sum())
@@ -1820,7 +2023,7 @@ def main() -> int:
 
     # ---- 9. gradients on the card against the CPU ----------------------------
     small_t = small_train_scene(args.seed)
-    g_gpu, g_cpu = render_grads(small_t, dev, args.seed), render_grads(small_t, "cpu", args.seed)
+    g_gpu, g_cpu = render_grads(small_t, dev, args.seed)[0], render_grads(small_t, "cpu", args.seed)[0]
     worst = max(((g_gpu[k] - g_cpu[k]).abs() / (GRAD_ATOL + GRAD_RTOL * g_cpu[k].abs())).max().item()
                 for k in g_cpu)
     require(all(torch.isfinite(v).all().item() for v in g_gpu.values()), "64x48 gradients not finite")
@@ -1910,8 +2113,7 @@ def main() -> int:
              "reduce_gaussians": rg.kernel_attributes("reduce_gaussians", R)}
     k1_train_attrs = rg.kernel_attributes("blend_forward", Ct, (16, 16))
     t_applied = int(tfwd[2].sum())
-    k3_bound, k3_by, k3_bytes, k3_ops = blend_cost("blend_backward", t_nint, tgx * tgy + 1, N, Ct, H * W,
-                                                   t_applied)
+    k3_bound, k3_by, k3_bytes, k3_ops = blend_cost("blend_backward", t_nint, tb.edges, W, H, (16, 16), N, Ct, t_applied)
     k4_bytes = t_nint * (R * 4 + 8) + N * (8 + R * 4)
     k4_bound = max(k4_bytes / HBM_BYTES_PER_S, t_nint * R / FP32_FLOPS_PER_S) * 1e3
     log("times", f"train step {train_ms:.3f} ms wall (median of steps 2-{TRAIN_STEPS}; all: "
@@ -1963,6 +2165,10 @@ def main() -> int:
     # ---- 22. the loss library on the card ------------------------------------
     helpers_phase(args, dev, card, scene)
 
+    # ---- 23. the blend's wide instances: C = 52 train steps, C = 49 render ----
+    wide_rows, wide_launches = wide_phase(args, dev, card, cpm)
+    instances = merge_rows(instances, wide_rows)
+
     kernels = [
         {"name": "blend_forward", "route": "cuda",
          "source": "splatter_a_video_tpu_torch/csrc/blend_forward.cu",
@@ -1997,10 +2203,11 @@ def main() -> int:
         # and the ten train steps keep their own counts beside it
         k["render_launches"], k["step_launches"] = launches[k["name"]], train_launches[k["name"]]
         k["launches"] = fit_launches[k["name"]]
-        # the blend instances of phases 15 and 18, each held torch.equal
+        # the blend instances of phases 15, 18 and 23, each held torch.equal
         k["instances"] = instances.get(k["name"], [])
-        # the DP steps' and the depth slabs' launches (phases 19, 20)
+        # the DP steps', the depth slabs' and the wide train steps' launches (phases 19, 20, 23)
         k["dp_launches"], k["shard_launches"] = dp_launches[k["name"]], shard_launches[k["name"]]
+        k["wide_launches"] = wide_launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -5,11 +5,12 @@
 //   rec[2g]     = (ux, uy, conic a, conic b)
 //   rec[2g + 1] = (conic c, opacity, bias (0 without one), 0).
 //
-// A batch buffer in shared memory holds S slots: their records, in K1 their
-// ids (STAGE_GID), and their feature rows, each padded to a multiple of 4
-// floats so the blend reads them as float4 (a broadcast: every lane of a
-// warp reads the same slot). The block copies batch k+1 into the second of
-// two such buffers while it works on batch k.
+// A batch buffer in shared memory holds S slots: their records, their ids
+// where STAGE_GID, and their feature rows (at most 32 channels of them),
+// each padded to a multiple of 4 floats so the blend reads them as float4
+// (a broadcast: every lane of a warp reads the same slot). The block
+// copies batch k+1 into the second of two such buffers while it works on
+// batch k.
 
 #pragma once
 
@@ -43,9 +44,12 @@ struct Batch {
   }
 
   // Start the asynchronous copies of slots base .. base + n - 1 (n <= S):
-  // one 16-byte copy per record half, one 4-byte copy per feature.
+  // one 16-byte copy per record half, one 4-byte copy per feature. Slot j's
+  // staged row holds the C features c0 .. c0 + C - 1 of its Gaussian's row
+  // of `stride` floats (C = 0 stages the records and ids alone).
   __device__ void load(const int* __restrict__ gid_in, const float4* __restrict__ rec_in,
-                       const float* __restrict__ features, int C, int base, int n) const {
+                       const float* __restrict__ features, int C, int base, int n, int stride,
+                       int c0) const {
     for (int i = threadIdx.x; i < 2 * n; i += blockDim.x) {
       const long long g = gid_in[base + (i >> 1)];
       if (STAGE_GID && !(i & 1)) gid[i >> 1] = static_cast<int>(g);
@@ -57,7 +61,7 @@ struct Batch {
       if (j < n) {
         const long long g = gid_in[base + j];
         __pipeline_memcpy_async(reinterpret_cast<float*>(feat) + j * row_floats(C) + c,
-                                features + g * C + c, 4);
+                                features + g * stride + c0 + c, 4);
       }
     }
   }

@@ -34,6 +34,15 @@
 //    broadcast read: all lanes of a warp read the same slot);
 //  * batch size: it was the block size; it is now S = 128 slots, so a
 //    double buffer of records and rows stays under 48 KB at C = 32.
+// Wider rows (C > 32) run a third kind of instance: one block per tile and
+// group of 32 channels, each replaying the same alpha walk (the same
+// arithmetic, so the same alpha, T and stop in every group) and blending
+// its own channels in the plain order; group 0 alone writes final_T,
+// ncontrib and gs_idx. Each block stages only its group's 32 features of a
+// slot, so shared memory stays at the C = 32 size (41,984 B) for any C,
+// and the accumulators at 32 registers. The price is the replay: the
+// quadratic and exp run once per group.
+//
 // The block still leaves its range as soon as every pixel is done
 // (__syncthreads_count once per batch), which is what bounds the work in
 // opaque scenes, and the per-pixel arithmetic is unchanged.
@@ -56,9 +65,12 @@ namespace {
 using namespace blend;
 
 constexpr int S = 128;   // slots per batch
+constexpr int GROUP = 32;  // channels of one block of the wide instance
 using FwdBatch = Batch<S, true>;
 
-template <int CB, int NT>
+// WIDE (C > 32): block (t, y) blends channels 32y .. 32y + 31 of tile t
+// (fewer in the last group). Without WIDE it blends all C <= CB channels.
+template <int CB, int NT, bool WIDE>
 __global__ void __launch_bounds__(NT, 1) blend_forward_kernel(
     const int* __restrict__ gid, const int* __restrict__ edges,
     const float4* __restrict__ rec, const float* __restrict__ features,
@@ -68,6 +80,10 @@ __global__ void __launch_bounds__(NT, 1) blend_forward_kernel(
   extern __shared__ float4 smem[];
   const int P = blockDim.x;
   const int t = blockIdx.x;
+  const int c0 = WIDE ? static_cast<int>(blockIdx.y) * GROUP : 0;
+  const int Cg = WIDE ? min(GROUP, C - c0) : C;   // the channels this block blends
+  const bool lead = !WIDE || blockIdx.y == 0;      // writes final_T, ncontrib, gs_idx
+  if (!lead) K = 0;
   const int x = (t % tgx) * tw + threadIdx.x % tw;
   const int y = (t / tgx) * (P / tw) + threadIdx.x / tw;
   const bool inside = x < W && y < H;
@@ -87,7 +103,9 @@ __global__ void __launch_bounds__(NT, 1) blend_forward_kernel(
     for (int k = 0; k < K; ++k) gs_idx[pix * K + k] = -1;
   }
 
-  if (start < end) FwdBatch::at(smem, 0, C).load(gid, rec, features, C, start, min(S, end - start));
+  if (start < end) {
+    FwdBatch::at(smem, 0, Cg).load(gid, rec, features, Cg, start, min(S, end - start), C, c0);
+  }
   __pipeline_commit();
   int q = 0;
   for (int base = start; base < end; base += S, q ^= 1) {
@@ -96,10 +114,10 @@ __global__ void __launch_bounds__(NT, 1) blend_forward_kernel(
     __pipeline_wait_prior(0);
     if (__syncthreads_count(done) == P) break;
     if (base + S < end) {
-      FwdBatch::at(smem, q ^ 1, C).load(gid, rec, features, C, base + S, min(S, end - base - S));
+      FwdBatch::at(smem, q ^ 1, Cg).load(gid, rec, features, Cg, base + S, min(S, end - base - S), C, c0);
     }
     __pipeline_commit();
-    const FwdBatch b = FwdBatch::at(smem, q, C);
+    const FwdBatch b = FwdBatch::at(smem, q, Cg);
     const int n = min(S, end - base);
     for (int j = 0; !done && j < n; ++j) {
       const float4 r0 = b.rec[2 * j];       // ux, uy, conic a, conic b
@@ -118,15 +136,15 @@ __global__ void __launch_bounds__(NT, 1) blend_forward_kernel(
         break;
       }
       const float w = alpha * T;
-      const float4* f = b.feat + j * (row_floats(C) / 4);
+      const float4* f = b.feat + j * (row_floats(Cg) / 4);
 #pragma unroll
       for (int c4 = 0; c4 < CB / 4; ++c4) {
-        if (4 * c4 >= C) break;
+        if (4 * c4 >= Cg) break;
         const float4 v = f[c4];
         acc[4 * c4] = acc[4 * c4] + w * v.x;
-        if (4 * c4 + 1 < C) acc[4 * c4 + 1] = acc[4 * c4 + 1] + w * v.y;
-        if (4 * c4 + 2 < C) acc[4 * c4 + 2] = acc[4 * c4 + 2] + w * v.z;
-        if (4 * c4 + 3 < C) acc[4 * c4 + 3] = acc[4 * c4 + 3] + w * v.w;
+        if (4 * c4 + 1 < Cg) acc[4 * c4 + 1] = acc[4 * c4 + 1] + w * v.y;
+        if (4 * c4 + 2 < Cg) acc[4 * c4 + 2] = acc[4 * c4 + 2] + w * v.z;
+        if (4 * c4 + 3 < Cg) acc[4 * c4 + 3] = acc[4 * c4 + 3] + w * v.w;
       }
       if (cnt < K) gs_idx[pix * K + cnt] = b.gid[j];
       ++cnt;
@@ -137,33 +155,37 @@ __global__ void __launch_bounds__(NT, 1) blend_forward_kernel(
   if (inside) {
 #pragma unroll
     for (int c = 0; c < CB; ++c) {
-      if (c < C) image[pix * C + c] = acc[c] + T * bg[c];
+      if (c < Cg) image[pix * C + c0 + c] = acc[c] + T * bg[c0 + c];
     }
-    final_T[pix] = T;
-    ncontrib[pix] = cnt;
+    if (lead) {
+      final_T[pix] = T;
+      ncontrib[pix] = cnt;
+    }
   }
 }
 
 using KernelFn = void (*)(const int*, const int*, const float4*, const float*, const float*,
                           int, int, int, int, int, int, int, float*, float*, int*, int*);
 
-#define BLEND_FORWARD_BUCKET(CB) \
-  {blend_forward_kernel<CB, 256>, blend_forward_kernel<CB, 512>, blend_forward_kernel<CB, 1024>}
+#define BLEND_FORWARD_BUCKET(CB, WIDE)                                              \
+  {blend_forward_kernel<CB, 256, WIDE>, blend_forward_kernel<CB, 512, WIDE>, \
+   blend_forward_kernel<CB, 1024, WIDE>}
 
-// [channel bucket 4, 8, ..., 32][block bound 256 / 512 / 1024]
-const KernelFn KERNELS[8][3] = {
-    BLEND_FORWARD_BUCKET(4),  BLEND_FORWARD_BUCKET(8),  BLEND_FORWARD_BUCKET(12),
-    BLEND_FORWARD_BUCKET(16), BLEND_FORWARD_BUCKET(20), BLEND_FORWARD_BUCKET(24),
-    BLEND_FORWARD_BUCKET(28), BLEND_FORWARD_BUCKET(32),
+// [channel bucket 4, 8, ..., 32, then the wide groups of 32][block bound 256 / 512 / 1024]
+const KernelFn KERNELS[9][3] = {
+    BLEND_FORWARD_BUCKET(4, false),  BLEND_FORWARD_BUCKET(8, false),  BLEND_FORWARD_BUCKET(12, false),
+    BLEND_FORWARD_BUCKET(16, false), BLEND_FORWARD_BUCKET(20, false), BLEND_FORWARD_BUCKET(24, false),
+    BLEND_FORWARD_BUCKET(28, false), BLEND_FORWARD_BUCKET(32, false), BLEND_FORWARD_BUCKET(32, true),
 };
 
 KernelFn pick(int C, int threads) {
-  const int cb = C <= 4 ? 0 : (C - 1) / 4;
+  const int cb = C <= 4 ? 0 : (C <= GROUP ? (C - 1) / 4 : 8);
   const int nt = threads <= 256 ? 0 : (threads <= 512 ? 1 : 2);
   return KERNELS[cb][nt];
 }
 
-size_t shared_bytes(int C) { return 2 * sizeof(float4) * static_cast<size_t>(FwdBatch::float4s(C)); }
+// a block stages the features of at most one group
+size_t shared_bytes(int C) { return 2 * sizeof(float4) * static_cast<size_t>(FwdBatch::float4s(min(C, GROUP))); }
 
 }  // namespace
 
@@ -171,9 +193,9 @@ size_t shared_bytes(int C) { return 2 * sizeof(float4) * static_cast<size_t>(Fwd
 // packed records (ux, uy, conic a, b, c, opacity, bias, 0; bias read only
 // when has_bias); features: [N, C]; bg: [C] (all on the device). Outputs:
 // image [H, W, C] f32, final_T [H, W] f32, ncontrib [H, W] int32, gs_idx
-// [H, W, K] int32 or null when K == 0. 1 <= C <= 32 and tw*th <= 1024 (the
-// caller checks both). One block of tw*th threads per tile. Returns
-// cudaGetLastError().
+// [H, W, K] int32 or null when K == 0. Any C >= 1; tw*th <= 1024 (the
+// caller checks). One block of tw*th threads per tile, and per group of
+// 32 channels when C > 32. Returns cudaGetLastError().
 extern "C" int blend_forward(const void* gid, const void* edges, const void* rec,
                              const void* features, const void* bg, int has_bias, int C,
                              int W, int H, int tw, int th, int K, void* image,
@@ -183,7 +205,8 @@ extern "C" int blend_forward(const void* gid, const void* edges, const void* rec
   const int threads = tw * th;
   const KernelFn fn = pick(C, threads);
   const size_t shared = shared_bytes(C);
-  fn<<<tgx * tgy, threads, shared, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(tgx * tgy, (C + GROUP - 1) / GROUP);
+  fn<<<grid, threads, shared, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(gid), static_cast<const int*>(edges),
       static_cast<const float4*>(rec), static_cast<const float*>(features),
       static_cast<const float*>(bg), has_bias, C, W, H, tw, tgx, K,

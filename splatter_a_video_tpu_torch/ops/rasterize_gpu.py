@@ -38,8 +38,6 @@ from .projection import tile_grid
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
-MAX_CHANNELS = 32   # largest channel bucket of csrc/blend_forward.cu and csrc/blend_backward.cu
-MAX_BWD_PIXELS = 512  # largest block of csrc/blend_backward.cu
 INT64_MAX = (1 << 63) - 1
 
 # launches of each kernel since the counts were last set to 0
@@ -48,8 +46,9 @@ LAUNCHES = {"blend_forward": 0, "expand_intersections": 0, "blend_backward": 0, 
 _ARGTYPES = {
     "blend_forward": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5,
     "expand_intersections": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3,
-    "blend_backward": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3,
+    "blend_backward": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3,
     "reduce_gaussians": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3,
+    "blend_backward_narrow": [ctypes.c_int] * 3,
 }
 # <name>_attributes(C, tw, th, int out[3]) of every kernel library
 _ATTR_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -58,7 +57,7 @@ _ATTR_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p]
 def _kernel(name: str, symbol: Optional[str] = None):
     fn = getattr(_build.load(name), symbol or name)
     if fn.argtypes is None:
-        fn.argtypes = _ATTR_ARGTYPES if symbol else _ARGTYPES[name]
+        fn.argtypes = _ARGTYPES.get(symbol or name, _ATTR_ARGTYPES)
         fn.restype = ctypes.c_int
     return fn
 
@@ -280,8 +279,6 @@ def blend_forward(
     N, C = features.shape
     if not 0 < tw * th <= 1024:
         raise ValueError(f"tile {tile}: tw*th must be in 1..1024")
-    if C > MAX_CHANNELS:
-        raise ValueError(f"{C} channels > {MAX_CHANNELS}, the most blend_forward takes")
     rec = _checked_records(uv, conic, opacity, opacity_bias, N, dev)
     ptrs = [
         _check(gid, "gid", torch.int32, gid.shape[:1], dev),
@@ -318,9 +315,13 @@ def _to_tiles(x: torch.Tensor, tgx: int, tgy: int, tw: int, th: int, W: int, H: 
 def _tile_tree_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum [T, P, R] over the P pixels of each tile in K3's order: within each
     warp of 32 pixels lane i takes lane i + 16, 8, 4, 2, 1; then the warps'
-    sums are added in warp order."""
+    sums are added in warp order. When P is not a multiple of 32 the last
+    warp is partial: its absent lanes hold +0.0, as K3's idle threads do."""
     T, P, R = x.shape
-    x = x.reshape(T, P // 32, 32, R)
+    pad = -P % 32
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+    x = x.reshape(T, (P + pad) // 32, 32, R)
     for off in (16, 8, 4, 2, 1):
         x = x[:, :, :off] + x[:, :, off : 2 * off]
     acc = torch.zeros((T, R), dtype=x.dtype, device=x.device)
@@ -448,10 +449,8 @@ def blend_backward(
     tw, th = tile
     tgx, tgy = tile_grid(W, H, tile)
     N, C = features.shape
-    if not (0 < tw * th <= MAX_BWD_PIXELS and tw * th % 32 == 0):
-        raise ValueError(f"tile {tile}: tw*th must be a multiple of 32 in 32..{MAX_BWD_PIXELS}")
-    if C > MAX_CHANNELS:
-        raise ValueError(f"{C} channels > {MAX_CHANNELS}, the most blend_backward takes")
+    if not 0 < tw * th <= 1024:
+        raise ValueError(f"tile {tile}: tw*th must be in 1..1024")
     M = gid.shape[0]
     rec = _checked_records(uv, conic, opacity, opacity_bias, N, dev)
     ptrs = [
@@ -465,6 +464,10 @@ def blend_backward(
         _check(final_T, "final_T", torch.float32, (H, W), dev),
         _check(grad, "grad", torch.float32, (H, W, C), dev),
     ]
+    # K3's wide instance (csrc/blend_backward.cu) reads dL/dimage channel-major
+    narrow = _kernel("blend_backward", "blend_backward_narrow")(C, tw, th)
+    grad_t = None if narrow else grad.permute(2, 0, 1).contiguous()
+    ptrs.append(None if grad_t is None else grad_t.data_ptr())
     R = 8 + C + (opacity_bias is not None)
     dgrad = torch.empty((M, R), dtype=torch.float32, device=dev)
     ncontrib = torch.empty((H, W), dtype=torch.int32, device=dev) if return_ncontrib else None

@@ -133,7 +133,22 @@ BLEND_CASES = [
     ((16, 16), 7, 4, True, True),
     ((32, 16), 20, 0, False, True),
 ]
-FORWARD_CASES = BLEND_CASES + [
+# C above 32 (K1's groups of 32 channels; K3's buckets 48 and 64 up to 256
+# pixels, its wide instance beyond), and K3's wide instance at tiles above
+# 512 pixels or not of whole warps
+WIDE_CASES = [
+    ((16, 16), 33, 0, False, False),
+    ((32, 16), 40, 0, False, False),
+    ((16, 16), 52, 8, True, False),
+    ((16, 16), 64, 0, False, True),
+    ((16, 16), 200, 0, False, False),
+    ((32, 32), 7, 0, False, True),
+    ((32, 32), 52, 4, True, False),
+    ((12, 12), 7, 0, False, False),
+    ((12, 12), 52, 0, True, True),
+    ((4, 4), 3, 0, False, False),
+]
+FORWARD_CASES = BLEND_CASES + WIDE_CASES + [
     ((16, 16), 4, 0, False, False),
     ((16, 16), 5, 4, False, False),
     ((16, 16), 21, 0, True, False),
@@ -192,7 +207,7 @@ def _backward_inputs(tile, bias, C=7, seed=2, dense=False, saturate=False):
 
 @pytest.mark.parametrize(
     "case", [((16, 16), 7, 0, False, False), ((16, 16), 7, 0, True, False), ((32, 16), 7, 0, False, False)]
-    + BLEND_CASES, ids=_case_id)
+    + BLEND_CASES + WIDE_CASES, ids=_case_id)
 def test_blend_backward_matches_plain(case):
     """K3 repeats the plain version's arithmetic and its fixed summation
     tree, and its replay applies exactly K1's Gaussians."""
@@ -215,6 +230,10 @@ def test_blend_backward_matches_plain(case):
     ("blend_backward", 7, (16, 16)), ("blend_backward", 32, (32, 16)),
     ("expand_intersections", 0, (16, 16)), ("reduce_gaussians", 0, (16, 16)),
     ("reduce_gaussians", 41, (16, 16)),
+    ("blend_forward", 52, (16, 16)), ("blend_forward", 200, (16, 16)), ("blend_forward", 52, (32, 32)),
+    ("blend_backward", 52, (16, 16)), ("blend_backward", 200, (16, 16)), ("blend_backward", 7, (32, 32)),
+    ("blend_backward", 52, (32, 32)), ("blend_backward", 7, (12, 12)),
+    ("reduce_gaussians", 60, (16, 16)), ("reduce_gaussians", 208, (16, 16)),
 ])
 def test_kernel_attributes(name, C, tile):
     """Each library reports its instance's registers, spills and shared bytes."""
@@ -237,10 +256,29 @@ def test_reduce_gaussians_matches_plain_and_is_deterministic():
     assert float(red.abs().sum()) > 0
 
 
-@pytest.mark.parametrize("C,bias,saturate", [(7, False, True), (32, True, False), (32, True, True)])
+# around the piece width (41) and the shared-memory limits of one unpieced
+# block (48 KB without opt-in at R = 42, 227 KB at R ~ 200)
+@pytest.mark.parametrize("R", [1, 15, 41, 42, 43, 82, 83, 200, 201, 256])
+def test_reduce_gaussians_any_row_count(R):
+    """K4 alone on seeded rows of R columns launches and equals its plain
+    version."""
+    b = _binned(3, (16, 16), 3, False, False)[0]
+    rows = torch.randn(b.order.shape[0], R, generator=torch.Generator().manual_seed(R)).cuda()
+    before = rasterize_gpu.LAUNCHES["reduce_gaussians"]
+    red = rasterize_gpu.reduce_gaussians(rows, b.order, b.offs, b.tiles)
+    assert rasterize_gpu.LAUNCHES["reduce_gaussians"] == before + 1
+    ref = rasterize_gpu.reduce_gaussians_plain(rows, b.order, b.offs, b.tiles)
+    torch.cuda.synchronize()
+    assert red.shape == (b.offs.shape[0], R)
+    assert torch.equal(red, ref) and float(red.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("C,bias,saturate", [(7, False, True), (32, True, False), (32, True, True),
+                                             (52, False, False), (52, True, True), (200, False, False)])
 def test_reduce_gaussians_wide_rows_and_saturated_budget(C, bias, saturate):
-    """R = 8 + 32 + 1 = 41 rows (more than one 32-lane group's pass) and a
-    budget that ends inside the expansion, twice for determinism."""
+    """R = 8 + 32 + 1 = 41 rows (more than one 32-lane group's pass), rows
+    summed in pieces (R = 60, 61 and 208 > 41) and a budget that ends inside
+    the expansion, twice for determinism."""
     b, args, _ = _backward_inputs((16, 16), bias, C=C, saturate=saturate)
     dgrad = rasterize_gpu.blend_backward(*args)
     assert dgrad.shape[1] == 8 + C + bias
