@@ -58,9 +58,11 @@ and holds each against its plain PyTorch version at the flagship shapes
      density step at the training shape with a 32-wide DINO attribute
      blended and supervised (C = 52, R = 60 rows into K4), one
      `inference.render_frame` with the three render attributes (C = 49),
-     K1, K3 and K4 at C = 33, 52, 64 and 200 and K3 on 32x32 and 12x12
-     tiles (C = 7 and 52), and the 64x48 training render at C = 52 on the
-     card against the CPU.
+     K1, K3 and K4 at C = 33, 52, 64 and 200 and on 32x32 and 12x12 tiles
+     (C = 7 and 52) and on tiles above the 1024 threads of a block (64x32
+     at C = 7, 48x48 at C = 52; there also `splat_scene` forward and
+     backward), and the 64x48 training render at C = 52 on the card against
+     the CPU.
 
 Every kernel check is `torch.equal` against the plain version.
 
@@ -146,9 +148,12 @@ HELPERS_DEPTH_RANGE = (0.8, 1.5)
 # phase 23, the blend's wide instances: the training shape with a 32-wide DINO attribute (C = 52, R = 60),
 # its render (C = 49), and K1 / K3 / K4 at more widths and tiles (16x16 unless given)
 WIDE_DINO, WIDE_STEPS = 32, 10
+WIDE_TRAIN_C = 20 + WIDE_DINO    # rgb 3, depth 1, track_gs 3, mask 1, pos_poly_feat 12, DINO
 WIDE_ATTR_WEIGHT = 20.0          # mask and DINO supervision: the reference's weight (train/trainer.py)
 WIDE_CS = (33, 52, 64, 200)      # K1, K3 and K4 on 16x16 tiles
-WIDE_TILES = ((7, (32, 32)), (52, (32, 32)), (7, (12, 12)))   # K3 above 512 pixels, and not whole warps
+# K3 above 512 pixels and not of whole warps; K1 and K3 above the 1024 threads of a block (64x32, 48x48),
+# also through `splat_scene` forward and backward
+WIDE_TILES = ((7, (32, 32)), (52, (32, 32)), (7, (12, 12)), (7, (64, 32)), (52, (48, 48)))
 
 
 def log(phase: str, msg: str) -> None:
@@ -780,13 +785,16 @@ def blend_cost(kernel: str, nint: int, edges, W: int, H: int, tile, N: int, C: i
 
 
 def blend_instance(tag: str, pr, rc, cpm: float, seed: int, card: str, K: int = 0, backward: bool = True,
-                   plain_reps: int = PLAIN_REPS):
+                   plain_reps: int = PLAIN_REPS, splat: bool = False):
     """K1 (and K3, then K4 on K3's rows) at the blend of the projection `pr`
     under `rc`: each `torch.equal` to its plain version, timed, with its
     bound; K4 also beside `index_add_`. With `plain_reps` 0 a plain
     version's time is the wall of its one call (the plain versions read
-    counts back, so they wait for the card as they run). Returns {kernel:
-    [instance row]} for the kernel table."""
+    counts back, so they wait for the card as they run). With `splat`, also
+    `rasterize_gpu.splat_scene` forward and backward (binning, K1, then K3
+    and K4 through its autograd Function) on the same inputs, its image
+    and gradients `torch.equal` to the kernels' outputs above. Returns
+    {kernel: [instance row]} for the kernel table."""
     import torch
 
     from splatter_a_video_tpu_torch.ops import binning
@@ -804,10 +812,7 @@ def blend_instance(tag: str, pr, rc, cpm: float, seed: int, card: str, K: int = 
 
     dev = pr.uv.device
     Wd, Hd, tile = rc.width, rc.height, rc.block
-    groups = list(pr.feature_groups.values())
-    feats = torch.cat([v for v, _, _ in groups], dim=1).contiguous()
-    bg = torch.tensor([b for v, b, _ in groups for _ in range(v.shape[1])], dtype=torch.float32, device=dev)
-    mask = torch.tensor([1.0 if og else 0.0 for v, _, og in groups for _ in range(v.shape[1])], device=dev)
+    feats, bg, mask = blend_arrays(pr)
     C, N = feats.shape[1], feats.shape[0]
     b = binning.bin_intersections(pr.depth, pr.tiles, pr.rect_min, pr.rect_max, Wd, Hd, rc.max_intersections,
                                   rc.max_tiles_per_gaussian, rc.block)
@@ -845,6 +850,21 @@ def blend_instance(tag: str, pr, rc, cpm: float, seed: int, card: str, K: int = 
     err3 = (dg[:used] - dref[:used]).abs().max().item()
     require(same3 and torch.isfinite(dg[:used]).all().item(), f"K3 {name} differs from plain")
     require(same4, f"K4 after K3 {name} differs from plain")
+    if splat:
+        leaves = [v.detach().clone().requires_grad_() for v in (pr.uv, pr.conic, pr.opacity, feats)]
+        sink = torch.zeros_like(pr.uv, requires_grad=True)
+        with torch.enable_grad():
+            img = rg.splat_scene(*leaves, pr.depth, pr.tiles, pr.rect_min, pr.rect_max, W=Wd, H=Hd, bg=bg,
+                                 alpha_grad_mask=mask, abs_sink=sink, max_intersections=rc.max_intersections,
+                                 max_tiles_per_gaussian=rc.max_tiles_per_gaussian, block=tuple(tile))[0]
+            (img * g).sum().backward()
+        Cw = feats.shape[1]
+        want = (red[:, 0:2], red[:, 2:5], red[:, 5], red[:, 6:6 + Cw], red[:, 6 + Cw:8 + Cw])
+        require(torch.equal(img, out[0]) and all(torch.equal(x.grad, r) for x, r in zip(leaves + [sink], want)),
+                f"splat_scene {name}: image or gradients differ from the kernels'")
+        log("K3", f"{name}: splat_scene forward and backward through binning, K1, K3 and K4 torch.equal to the "
+                  f"kernels' image and the gradients of uv, conic, opacity, features and the |duv| sink")
+        del leaves, sink, img
     del dref
     R = dg.shape[1]
     bound3, by3, nbytes3, ops3 = blend_cost("blend_backward", used, b.edges, Wd, Hd, tile, N, C, applied)
@@ -1572,6 +1592,66 @@ def helpers_phase(args, dev, card: str, scene) -> None:
                    f"value + gradients, median wall of {REPS} with a synchronize: " + "; ".join(parts) + f" {card}")
 
 
+def wide_training_config():
+    """Phase 23's trainer: the training shape with the render attributes
+    blended (C = WIDE_TRAIN_C with a WIDE_DINO-wide DINO attribute) and the
+    mask and DINO attributes supervised."""
+    from splatter_a_video_tpu_torch.train import trainer
+
+    return trainer.TrainerConfig(width=W, height=H, num_frames=FRAMES, max_intersections=MAX_INTERSECTIONS,
+                                 train_render_attributes=True, mask_attr_weight=WIDE_ATTR_WEIGHT,
+                                 dino_attr_weight=WIDE_ATTR_WEIGHT)
+
+
+def wide_blends(scene, tcfg, extr, seed: int):
+    """Phase 23's blends of the training frame TRAIN_T1, one at a time (run
+    it under torch.no_grad): (projection, raster config) for each C of
+    WIDE_CS on 16x16 tiles, whose first 7 channels are rgb, depth and
+    track_gs and the rest the render attributes at C = WIDE_TRAIN_C (the
+    wide training blend) or random from `seed`; then for each (C, tile) of
+    WIDE_TILES the wide training blend or, at C = 7, rgb, depth and
+    track_gs."""
+    import torch
+
+    from splatter_a_video_tpu_torch.train import trainer
+
+    inp = trainer.scene_render_inputs(scene, TRAIN_T1)
+    extra = {"track_gs": scene.get_position(TRAIN_T2), **{k: inp[k] for k in EXTRA}}
+
+    def project(tile, names):
+        rc = dataclasses.replace(tcfg, block_x=tile[0], block_y=tile[1]).raster_cfg()
+        pr = trainer.project_for_training(inp, extr, rc, {k: extra[k] for k in names}, True, 0.0, tcfg.depth_bg)
+        return pr, rc, sum(v.shape[1] for v, _, _ in pr.feature_groups.values())
+
+    pr, rc16, C = project((16, 16), extra)
+    require(C == WIDE_TRAIN_C, f"the wide training blend carries {C} channels, expected {WIDE_TRAIN_C}")
+    base = {k: pr.feature_groups[k] for k in ("rgb", "depth", "track_gs")}
+    gen = torch.Generator(device=pr.uv.device).manual_seed(seed)
+    for Cw in WIDE_CS:
+        groups = dict(pr.feature_groups) if Cw == C else {
+            **base, "random": (torch.rand((pr.uv.shape[0], Cw - 7), generator=gen, device=pr.uv.device), 0.5, False)}
+        yield pr._replace(feature_groups=groups), rc16
+    del pr
+    for Cw, tile in WIDE_TILES:
+        pr_t, rc_t, Ct = project(tile, extra if Cw == C else ("track_gs",))
+        require(Ct == Cw, f"{tile} carries {Ct} channels, expected {Cw}")
+        yield pr_t, rc_t
+        del pr_t
+
+
+def blend_arrays(pr):
+    """Features [N, C], bg [C] and alpha_grad_mask [C] of a projection's
+    feature groups, as the blend takes them."""
+    import torch
+
+    groups = list(pr.feature_groups.values())
+    dev = pr.uv.device
+    feats = torch.cat([v for v, _, _ in groups], dim=1).contiguous()
+    bg = torch.tensor([b for v, b, _ in groups for _ in range(v.shape[1])], dtype=torch.float32, device=dev)
+    mask = torch.tensor([1.0 if og else 0.0 for v, _, og in groups for _ in range(v.shape[1])], device=dev)
+    return feats, bg, mask
+
+
 def wide_phase(args, dev, card: str, cpm: float):
     """Phase 23: the blend's wide instances. WIDE_STEPS `make_train_step`
     steps and a density step at the flagship training shape with a
@@ -1579,8 +1659,9 @@ def wide_phase(args, dev, card: str, cpm: float):
     depth 1, track_gs 3, mask 1, pos_poly_feat 12, DINO 32; R = 60 rows into
     K4); one `inference.render_frame` with the three render attributes
     (C = 49), and K1 on that frame's projection; K1, K3 and K4 at C in
-    WIDE_CS and K3 at the tiles of WIDE_TILES on the training frame, each
-    `torch.equal` to its plain version and timed; and the 64x48 training render at C = 52 on the card
+    WIDE_CS and at the tiles of WIDE_TILES on the training frame, each
+    `torch.equal` to its plain version and timed (with `splat_scene` too
+    above 1024 pixels); and the 64x48 training render at C = 52 on the card
     against the CPU (render atol ATOL, gradients GRAD_ATOL / GRAD_RTOL).
     Returns (the kernel instances, the train steps' launch counts)."""
     import torch
@@ -1593,27 +1674,12 @@ def wide_phase(args, dev, card: str, cpm: float):
     scene = convert.scene_from_numpy(*flagship_scene_arrays(args.seed, dino=WIDE_DINO), device=DEVICE)
     cam = camera.canonical_camera(W, H)
     extr = torch.as_tensor(cam.extrinsic, dtype=torch.float32, device=dev)
-    tcfg = trainer.TrainerConfig(width=W, height=H, num_frames=FRAMES, max_intersections=MAX_INTERSECTIONS,
-                                 train_render_attributes=True, mask_attr_weight=WIDE_ATTR_WEIGHT,
-                                 dino_attr_weight=WIDE_ATTR_WEIGHT)
+    tcfg = wide_training_config()
     arrays = train_batch_arrays(args.seed)
     rng = np.random.RandomState(args.seed + 12)
     arrays["mask1"] = (rng.rand(H, W) < 0.5).astype(np.float32)
     arrays["dino1"] = rng.uniform(0.0, 1.0, (H, W, WIDE_DINO)).astype(np.float32)
     batch = trainer.Batch(t1=TRAIN_T1, t2=TRAIN_T2, **{k: torch.from_numpy(v).to(dev) for k, v in arrays.items()})
-
-    with torch.no_grad():
-        inp = trainer.scene_render_inputs(scene, TRAIN_T1)
-        extra = {"track_gs": scene.get_position(TRAIN_T2), **{k: inp[k] for k in EXTRA}}
-
-        def project(tile, names):
-            rc = dataclasses.replace(tcfg, block_x=tile[0], block_y=tile[1]).raster_cfg()
-            return trainer.project_for_training(inp, extr, rc, {k: extra[k] for k in names}, True, 0.0,
-                                                tcfg.depth_bg), rc
-
-        pr, rc16 = project((16, 16), extra)
-        C = sum(v.shape[1] for v, _, _ in pr.feature_groups.values())
-        require(C == 52, f"the wide training blend carries {C} channels, expected 52")
 
     # ---- the train steps and a density step at C = 52 ----
     train_step, density_step, _ = trainer.make_train_step(tcfg, cam.extrinsic, device=DEVICE)
@@ -1640,14 +1706,16 @@ def wide_phase(args, dev, card: str, cpm: float):
     require(alive_after == int(info.num_alive), f"wide density: alive {alive_after} != {int(info.num_alive)}")
     require(all(torch.isfinite(v).all().item() for v in dense.scene.params.values()), "wide density: not finite")
     med = statistics.median(step_ms[1:])
-    log("wide", f"{WIDE_STEPS} steps of make_train_step at {W}x{H}, {ALIVE} alive, C={C} (DINO {WIDE_DINO} blended "
-                f"and supervised, mask too, weight {WIDE_ATTR_WEIGHT:g}), {TRACKS} tracks: {med:.3f} ms/step wall "
+    log("wide", f"{WIDE_STEPS} steps of make_train_step at {W}x{H}, {ALIVE} alive, C={WIDE_TRAIN_C} (DINO "
+                f"{WIDE_DINO} blended and supervised, mask too, weight {WIDE_ATTR_WEIGHT:g}), {TRACKS} tracks: "
+                f"{med:.3f} ms/step wall "
                 f"(median of steps 2-{WIDE_STEPS}; all: {', '.join(f'{t:.1f}' for t in step_ms)}); launches "
                 f"{launches}; loss {first['loss']:.5f} -> {last['loss']:.5f}, loss_dino_attr "
                 f"{first['loss_dino_attr']:.5f} -> {last['loss_dino_attr']:.5f}; density step: cloned "
                 f"{int(info.num_cloned)}, split {int(info.num_split)}, pruned {int(info.num_pruned)}, alive "
                 f"{alive_after} == num_alive {card}")
-    log("wide", busy_line(f"wide train step (C={C}), 3 steps", lambda: train_step(state0, batch), 3, 1, med, card))
+    log("wide", busy_line(f"wide train step (C={WIDE_TRAIN_C}), 3 steps", lambda: train_step(state0, batch), 3, 1,
+                          med, card))
     del dense, state
 
     # ---- one frame with the three render attributes: C = 49 ----
@@ -1679,18 +1747,10 @@ def wide_phase(args, dev, card: str, cpm: float):
         require(Cr == 49, f"the render's projection carries {Cr} channels, expected 49")
         rows = blend_instance("wide render", pr_r, rcfg, cpm, args.seed + 14, card, backward=False, plain_reps=0)
         del pr_r, r_inp, r_extra
-        base = {k: pr.feature_groups[k] for k in ("rgb", "depth", "track_gs")}
-        gen = torch.Generator(device=dev).manual_seed(args.seed + 13)
-        for Cw in WIDE_CS:
-            groups = dict(pr.feature_groups) if Cw == C else {
-                **base, "random": (torch.rand((pr.uv.shape[0], Cw - 7), generator=gen, device=dev), 0.5, False)}
-            rows = merge_rows(rows, blend_instance("wide", pr._replace(feature_groups=groups), rc16, cpm,
-                                                   args.seed + 14, card, plain_reps=0))
-        for Cw, tile in WIDE_TILES:
-            pr_t, rc_t = project(tile, extra if Cw == C else ("track_gs",))
-            require(sum(v.shape[1] for v, _, _ in pr_t.feature_groups.values()) == Cw, f"{tile} C={Cw}")
-            rows = merge_rows(rows, blend_instance("wide", pr_t, rc_t, cpm, args.seed + 14, card, plain_reps=0))
-            del pr_t
+        for pr, rc in wide_blends(scene, tcfg, extr, args.seed + 13):
+            big = rc.block[0] * rc.block[1] > 1024
+            rows = merge_rows(rows, blend_instance("wide", pr, rc, cpm, args.seed + 14, card, plain_reps=0, splat=big))
+            del pr
     torch.cuda.empty_cache()
 
     # ---- the 64x48 training render at C = 52, card against CPU ----

@@ -67,11 +67,12 @@
 // [32 slots][warps][rows] partials in shared memory, which grow with C and
 // the tile; they run C <= 32 on tiles of whole warps up to 512 pixels, and
 // C <= 64 (buckets 48 and 64) up to 256 pixels (the 16x16 tile of the
-// training render with its wide render attributes). Every other launch
-// runs the wide instance below, whose registers and shared memory (at
-// most 35,200 B) are bounded for any C and tile, at the price of reading
-// dL/dimage and the feature rows from memory for each applied pair and of
-// more barriers.
+// training render with its wide render attributes). Buckets 48 and 64 run
+// their channel loops over whole float4s, without a test per channel
+// (10% faster at C = 52, `PERF.md` §6). The tiled instances
+// run the same code over any other tile at C <= 64, in passes of at most
+// 256 pixels; the wide instance takes C > 64 on any tile, with registers
+// and shared memory bounded for any C.
 
 #include <cuda_runtime.h>
 
@@ -88,9 +89,12 @@ constexpr int BASE_ROWS = 9;  // duv 2, dconic 3, dop 1, |duv| 2, dbias 1
 // registers of a 256-thread block)
 constexpr int NARROW_CHANNELS = 32, NARROW_PIXELS = 512;
 constexpr int MEDIUM_CHANNELS = 64, MEDIUM_PIXELS = 256;
-constexpr int PART_FLOATS = 8192;     // partial-row floats of a wide block (32 KB)
+// the wide instance: threads of a block (and pixels of one pass), channels
+// of a chunk (one 16-row reduce-scatter)
+constexpr int WIDE_NT = 256, CC = 16;
+constexpr int WS = 16;   // slots per batch of the wide instance
 using BwdBatch = Batch<S, false>;
-using WideBatch = Batch<S, true>;     // records and ids only: the wide kernel reads rows from memory
+using WideBatch = Batch<WS, false>;
 
 // Internal row order: the 9 base rows, then dfeat 0 .. C-1; padded to a
 // multiple of 16 for the reduce-scatter.
@@ -136,14 +140,19 @@ __device__ __forceinline__ float reduce_scatter16(float (&v)[16], int lane) {
   return v[0] + __shfl_xor_sync(FULL, v[0], 1);
 }
 
-template <int CB, int NT>
-__global__ void __launch_bounds__(NT, 1) blend_backward_kernel(
+// The per-slot design above over one pass of the tile: pixels p0 .. p0 +
+// blockDim.x - 1 of the tile's TP, one a thread. Without PASSES the block
+// is the whole tile (p0 = 0, TP = blockDim.x, first); with PASSES the
+// lanes past the tile hold zero rows, and a pass after the first adds its
+// warps' sums onto the rows the earlier passes wrote.
+template <int CB, bool PASSES>
+__device__ __forceinline__ void backward_pass(
     const int* __restrict__ gid, const int* __restrict__ edges,
     const float4* __restrict__ rec, const float* __restrict__ features,
     const float* __restrict__ bg, const float* __restrict__ mask,
     const float* __restrict__ image, const float* __restrict__ final_T,
     const float* __restrict__ grad, int has_bias, int C, int W, int H, int tw, int tgx,
-    float* __restrict__ dgrad, int* __restrict__ ncontrib) {
+    float* __restrict__ dgrad, int* __restrict__ ncontrib, int TP, int p0, bool first) {
   extern __shared__ float4 smem[];
   const int P = blockDim.x;
   const int nwarp = P >> 5;
@@ -160,9 +169,10 @@ __global__ void __launch_bounds__(NT, 1) blend_backward_kernel(
   const int t = blockIdx.x;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int x = (t % tgx) * tw + threadIdx.x % tw;
-  const int y = (t / tgx) * (P / tw) + threadIdx.x / tw;
-  const bool inside = x < W && y < H;
+  const int p = p0 + static_cast<int>(threadIdx.x);
+  const int x = PASSES ? (t % tgx) * tw + p % tw : (t % tgx) * tw + threadIdx.x % tw;
+  const int y = PASSES ? (t / tgx) * (TP / tw) + p / tw : (t / tgx) * (P / tw) + threadIdx.x / tw;
+  const bool inside = (!PASSES || p < TP) && x < W && y < H;
   const float pxf = static_cast<float>(x);
   const float pyf = static_cast<float>(y);
   const long long pix = static_cast<long long>(y) * W + x;
@@ -174,6 +184,15 @@ __global__ void __launch_bounds__(NT, 1) blend_backward_kernel(
   if (threadIdx.x < C) {
     s_bg[threadIdx.x] = bg[threadIdx.x];
     s_mask[threadIdx.x] = mask[threadIdx.x];
+  }
+  if constexpr (CB > 32) {
+    // zero the rows' padding past C (no copy writes it): the channel loops
+    // below then run whole float4s, padded channels adding +0.0
+    const int rf = row_floats(C);
+    for (int i = threadIdx.x; i < 2 * S * (rf - C); i += P) {
+      const int q = i / (S * (rf - C)), j = (i / (rf - C)) % S, c = C + i % (rf - C);
+      reinterpret_cast<float*>(BwdBatch::at(smem, q, C).feat)[j * rf + c] = 0.0f;
+    }
   }
   __syncthreads();
 
@@ -212,9 +231,12 @@ __global__ void __launch_bounds__(NT, 1) blend_backward_kernel(
     __pipeline_wait_prior(0);
     if (__syncthreads_count(done) == P) {
       // every pixel has stopped: the rest of the tile's slots get zero rows
-      for (long long i = static_cast<long long>(base) * R + threadIdx.x;
-           i < static_cast<long long>(end) * R; i += P)
-        dgrad[i] = 0.0f;
+      // (a later pass leaves them as they are)
+      if (!PASSES || first) {
+        for (long long i = static_cast<long long>(base) * R + threadIdx.x;
+             i < static_cast<long long>(end) * R; i += P)
+          dgrad[i] = 0.0f;
+      }
       break;
     }
     if (base + S < end) {
@@ -268,7 +290,10 @@ __global__ void __launch_bounds__(NT, 1) blend_backward_kernel(
           const float fv[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            if (4 * c4 + e < C) {
+            // above 32 channels the padded channels run too: g, gm and the
+            // row's padding are +0.0, and G is never -0.0, so they add
+            // nothing; the narrow buckets keep the test
+            if (CB > 32 || 4 * c4 + e < C) {
               G_all = G_all + g[4 * c4 + e] * fv[e];
               G_op = G_op + gm[4 * c4 + e] * fv[e];
             }
@@ -302,7 +327,8 @@ __global__ void __launch_bounds__(NT, 1) blend_backward_kernel(
             if (row < BASE_ROWS) {
               v[k] = rows[row];
             } else if (row - BASE_ROWS < CB) {
-              v[k] = row - BASE_ROWS < C ? g[row - BASE_ROWS] * w : 0.0f;
+              // g is +0.0 past C, and so is g * w (w >= +0.0)
+              v[k] = CB > 32 || row - BASE_ROWS < C ? g[row - BASE_ROWS] * w : 0.0f;
             } else {
               v[k] = 0.0f;
             }
@@ -321,7 +347,7 @@ __global__ void __launch_bounds__(NT, 1) blend_backward_kernel(
       const int j = i / R;
       const int k = internal_row(i - j * R, C);
       const float* part = s_part + j * nwarp * RP + k;
-      float acc = 0.0f;
+      float acc = PASSES && !first ? out[i] : 0.0f;
       for (int wi = 0; wi < nwarp; ++wi) {
         if ((s_any[wi] >> j) & 1u) acc = acc + part[wi * RP];
       }
@@ -332,213 +358,413 @@ __global__ void __launch_bounds__(NT, 1) blend_backward_kernel(
   if (ncontrib != nullptr && inside) ncontrib[pix] = cnt;
 }
 
-// The wide instance: any C, any tile of 1..1024 pixels. One thread per
-// pixel, the block rounded up to whole warps (the lanes past P hold zero
-// rows, as `_tile_tree_sum`'s padding does). Per pixel it keeps only the
-// scalars of the replay; dL/dimage is read from grad_t, a channel-major
-// [C, H, W] copy (coalesced across a warp's pixels), and each applied
-// slot's feature row from `features` (one broadcast address per warp).
-// The staged batch holds the 32 slots' records and ids alone.
-//
-// Partial rows are bounded by PART_FLOATS whatever C and the tile: the
-// slots of a batch are summed in rounds of SR slots, each round's internal
-// rows (9 base rows, then dfeat 0 .. C-1) in chunks of RC rows, with
-// [SR][warps][RC] partials in shared memory and two barriers per (round,
-// chunk). A chunk k > 0 holds dfeat rows only (g_c * w): its pass replays
-// the round's alpha walk from a copy of the pixel's state. Chunk 0 runs
-// last and advances the state: the replay, the channel dot products and
-// the base rows. Every sum keeps the narrow instances' order: the channel
-// sums in channel order, every row through the same warp tree and warp
-// order.
-template <int NT>
-__global__ void __launch_bounds__(NT, 1) blend_backward_wide_kernel(
+// The narrow instances: one block of tw*th threads (whole warps) per tile.
+template <int CB, int NT>
+__global__ void __launch_bounds__(NT, 1) blend_backward_kernel(
     const int* __restrict__ gid, const int* __restrict__ edges,
     const float4* __restrict__ rec, const float* __restrict__ features,
     const float* __restrict__ bg, const float* __restrict__ mask,
     const float* __restrict__ image, const float* __restrict__ final_T,
-    const float* __restrict__ grad_t, int has_bias, int C, int W, int H, int tw, int P,
-    int tgx, int SR, int RC, float* __restrict__ dgrad, int* __restrict__ ncontrib) {
+    const float* __restrict__ grad, int has_bias, int C, int W, int H, int tw, int tgx,
+    float* __restrict__ dgrad, int* __restrict__ ncontrib) {
+  backward_pass<CB, false>(gid, edges, rec, features, bg, mask, image, final_T, grad, has_bias, C, W, H, tw,
+                           tgx, dgrad, ncontrib, 0, 0, true);
+}
+
+// The same design on any tile of TP pixels: a block of blockDim.x threads
+// (the tile rounded up to whole warps, at most WIDE_NT) takes the tile's
+// pixels in passes, pass k pixels k * blockDim.x .. (k + 1) * blockDim.x -
+// 1, so its warps are the tile's warps of 32 consecutive pixels in order,
+// and the chain of warp sums in warp order goes on from one pass to the
+// next, as `_tile_tree_sum`'s does across the tile.
+template <int CB>
+__global__ void __launch_bounds__(WIDE_NT, 1) blend_backward_tiled_kernel(
+    const int* __restrict__ gid, const int* __restrict__ edges,
+    const float4* __restrict__ rec, const float* __restrict__ features,
+    const float* __restrict__ bg, const float* __restrict__ mask,
+    const float* __restrict__ image, const float* __restrict__ final_T,
+    const float* __restrict__ grad, int has_bias, int C, int W, int H, int tw, int TP, int tgx,
+    float* __restrict__ dgrad, int* __restrict__ ncontrib) {
+  for (int p0 = 0; p0 < TP; p0 += blockDim.x) {
+    backward_pass<CB, true>(gid, edges, rec, features, bg, mask, image, final_T, grad, has_bias, C, W, H, tw,
+                            tgx, dgrad, ncontrib, TP, p0, p0 == 0);
+    __syncthreads();   // every thread is past the pass's shared reads before the next one stages
+  }
+}
+
+// Swap v[s] and v[s | BIT] for every s without BIT, where `swap` holds.
+template <int BIT>
+__device__ __forceinline__ void swap_pairs(float (&v)[16], bool swap) {
+#pragma unroll
+  for (int s = 0; s < 16; ++s) {
+    if (!(s & BIT)) {
+      const float a = v[s], c = v[s | BIT];
+      v[s] = swap ? c : a;
+      v[s | BIT] = swap ? a : c;
+    }
+  }
+}
+
+// reduce_scatter16 without its selects: v[s] must hold row s ^ m of the
+// lane's rows, m = (lane >> 1) & 15 (a lane-dependent order, set up once
+// when the rows are loaded, with swap_pairs). Each step then adds the
+// partner's copy of the same row, slot for slot, and lane l returns row
+// l >> 1 as reduce_scatter16 does, through the same pairs of lanes and so
+// the same sums.
+template <int HALF>
+__device__ __forceinline__ void ordered_step(float (&v)[16]) {
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) v[i] = v[i] + __shfl_xor_sync(FULL, v[i + HALF], 2 * HALF);
+}
+
+__device__ __forceinline__ float reduce_scatter16_ordered(float (&v)[16]) {
+  ordered_step<8>(v);
+  ordered_step<4>(v);
+  ordered_step<2>(v);
+  ordered_step<1>(v);
+  return v[0] + __shfl_xor_sync(FULL, v[0], 1);
+}
+
+// The wide instance: C > 64 (the narrow and tiled instances' registers
+// hold 2 x 64 gradients a thread at most), any tile. A block of NT = 256
+// threads takes the tile's pixels in passes of 256, as the tiled instance
+// does, carrying the rows from pass to pass in dgrad. The parent's wide
+// instance ran C = 200 at 147x its bound: it read dL/dimage and every
+// feature row from memory for each applied (slot, pixel) pair and summed a
+// batch in rounds of 4 slots. Per batch of WS = 16 slots this one
+//  * walks once: each pixel replays K1's steps over the batch and keeps a
+//    bit per applied slot and its weight w in shared memory (a column of
+//    its own: no barrier); its warp ORs the bits (one word a warp, read by
+//    the cross-warp sums);
+//  * takes the channels in chunks of CC = 16. A chunk's feature rows (the
+//    batch's slots, zero-padded) and mask are staged by the block with
+//    cp.async into the second of two buffers while the first is summed,
+//    and the pixel's dL/dimage for the chunk into a column of its own as
+//    soon as the thread has read the last one;
+//  * per chunk, adds the chunk's terms to the channel dot products G_all /
+//    G_op of all the batch's slots at once (16 independent chains in
+//    registers, each in channel order), then sums the chunk's dfeat rows
+//    g_c w through the warp tree, one 16-row reduce-scatter per slot the
+//    warp applied. The rows are loaded in a lane-dependent order, so the
+//    reduce-scatter needs no selects (48 instructions a slot, not 96);
+//  * after the last chunk, stores the pixel's G in shared memory and goes
+//    through the batch once more, in a loop of its own, for the prefix
+//    sums and the 9 base rows: it recomputes the quadratic, exp and alpha
+//    of the slots it applied (the same arithmetic as the walk, so the same
+//    bits) and the transmittance chain from the batch's start;
+//  * sums the warps' partial rows in parallel over the block after one
+//    barrier a chunk, in warp order onto the carry, writing each row once.
+// Registers stay at 128 and shared memory at 60,576 B for any C and tile,
+// so two blocks (16 warps) fit on an SM. At C = 200 on an H100 this ran
+// 11.74 ms, with 32 slots a batch (2 x 32 chains, 280 B of spills) 13.09
+// ms, and at one block an SM (154 registers) 15.77 ms (`PERF.md` §6).
+__global__ void __launch_bounds__(WIDE_NT, 2) blend_backward_wide_kernel(
+    const int* __restrict__ gid, const int* __restrict__ edges,
+    const float4* __restrict__ rec, const float* __restrict__ features,
+    const float* __restrict__ bg, const float* __restrict__ mask,
+    const float* __restrict__ image, const float* __restrict__ final_T,
+    const float* __restrict__ grad, int has_bias, int C, int W, int H, int tw, int P, int tgx,
+    float* __restrict__ dgrad, int* __restrict__ ncontrib) {
   extern __shared__ float4 smem[];
-  const int nthreads = blockDim.x;
-  const int nwarp = nthreads >> 5;
+  constexpr int nt = WIDE_NT;   // pixels of a pass: compile-time, so every shared offset is an immediate
+  constexpr int nw = WIDE_NT / 32;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int order = (lane >> 1) & 15;   // reduce_scatter16_ordered's row order
   const int R = 8 + C + has_bias;
-  const int NR = BASE_ROWS + C;   // internal rows
-  const int nchunks = (NR + RC - 1) / RC;
-  // two batch buffers, then [SR][nwarp][RC] partial rows and the warps' masks
-  float* s_part = reinterpret_cast<float*>(smem + 2 * WideBatch::float4s(0));
-  unsigned* s_any = reinterpret_cast<unsigned*>(s_part + SR * nwarp * RC);
+  const int nk = (C + CC - 1) / CC;   // channel chunks
+  // two record buffers, then two chunk buffers of feature rows [WS][CC] and
+  // masks [CC]; then columns of each thread's own: its pixel's dL/dimage
+  // of a chunk [CC][nt], w and later G_all [WS][nt], G_op [WS][nt]; then
+  // the partial rows [WS][nw][16] and the warps' masks
+  float4* s_f4 = smem + 2 * WideBatch::float4s(0);
+  float* s_mask = reinterpret_cast<float*>(s_f4 + 2 * WS * CC / 4);
+  float* s_g = s_mask + 2 * CC + tid;
+  float* s_w = s_g + CC * nt;
+  float* s_gop = s_w + WS * nt;
+  float* s_part = s_mask + 2 * CC + (CC + 2 * WS) * nt;
+  unsigned* s_any = reinterpret_cast<unsigned*>(s_part + WS * nw * 16);
 
   const int t = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int x = (t % tgx) * tw + threadIdx.x % tw;
-  const int y = (t / tgx) * (P / tw) + threadIdx.x / tw;
-  const bool inside = static_cast<int>(threadIdx.x) < P && x < W && y < H;
-  const float pxf = static_cast<float>(x);
-  const float pyf = static_cast<float>(y);
-  const long long pix = static_cast<long long>(y) * W + x;
-  const long long HW = static_cast<long long>(H) * W;
-  const float* gp = grad_t + pix;   // channel c of dL/dimage at gp[c * HW]
+  const int tx0 = (t % tgx) * tw;
+  const int ty0 = (t / tgx) * (P / tw);
   const int start = edges[t];
   const int end = edges[t + 1];
 
-  if (start < end) WideBatch::at(smem, 0, 0).load(gid, rec, features, 0, start, min(S, end - start), C, 0);
-  __pipeline_commit();
-
-  // per-pixel constants of the backward, each sum in channel order
-  float B_all = 0.0f, B_op = 0.0f, tot_all = 0.0f, tot_op = 0.0f, Tfin = 0.0f;
-  if (inside) {
-    Tfin = final_T[pix];
-    for (int c = 0; c < C; ++c) {
-      const float g = gp[c * HW];
-      const float gm = g * mask[c];
-      const float o = image[pix * C + c];
-      B_all = B_all + g * bg[c];
-      B_op = B_op + gm * bg[c];
-      tot_all = tot_all + g * o;
-      tot_op = tot_op + gm * o;
-    }
-    tot_all = tot_all - Tfin * B_all;
-    tot_op = tot_op - Tfin * B_op;
-  }
-
-  float T = 1.0f;
-  float pre_all = 0.0f, pre_op = 0.0f;
-  int cnt = 0;
-  bool done = !inside;
-
-  int q = 0;
-  for (int base = start; base < end; base += S, q ^= 1) {
-    __pipeline_wait_prior(0);
-    if (__syncthreads_count(done) == nthreads) {
-      for (long long i = static_cast<long long>(base) * R + threadIdx.x;
-           i < static_cast<long long>(end) * R; i += nthreads)
-        dgrad[i] = 0.0f;
-      break;
-    }
-    if (base + S < end) {
-      WideBatch::at(smem, q ^ 1, 0).load(gid, rec, features, 0, base + S, min(S, end - base - S), C, 0);
-    }
-    __pipeline_commit();
-    const WideBatch b = WideBatch::at(smem, q, 0);
-    const int n = min(S, end - base);
-    for (int r0 = 0; r0 < n; r0 += SR) {
-      const int nr = min(SR, n - r0);
-      for (int k = nchunks - 1; k >= 0; --k) {
-        float Tk = T;
-        bool dk = done;
-        unsigned any_mask = 0u;
-        for (int jr = 0; jr < nr; ++jr) {
-          const int j = r0 + jr;
-          // ---- K1's forward step, term for term ----
-          const float4 q0 = b.rec[2 * j];       // ux, uy, conic a, conic b
-          const float4 q1 = b.rec[2 * j + 1];   // conic c, opacity, bias, pad
-          bool app = false;
-          float vx = 0.0f, vy = 0.0f, gexp = 0.0f, alpha = 0.0f, T_excl = 0.0f, w = 0.0f;
-          if (!dk) {
-            vx = q0.x - pxf;
-            vy = q0.y - pyf;
-            const float power = -0.5f * (q0.z * (vx * vx) + q1.x * (vy * vy)) - q0.w * vx * vy;
-            if (power <= 0.0f) {
-              gexp = expf(power);
-              float raw = q1.y * gexp;
-              if (has_bias) raw = raw + q1.z;
-              alpha = fminf(ALPHA_MAX, raw);
-              if (alpha >= ALPHA_MIN) {
-                const float next_T = Tk * (1.0f - alpha);
-                if (next_T < T_EPS) {
-                  dk = true;
-                } else {
-                  app = true;
-                  T_excl = Tk;
-                  w = alpha * Tk;
-                  Tk = next_T;
-                }
-              }
-            }
-          }
-          if (k == 0 && app) ++cnt;
-          if (!__any_sync(FULL, app)) continue;   // all rows of this warp are 0
-          // ---- the base rows (chunk 0 only) ----
-          float rows[BASE_ROWS];
-#pragma unroll
-          for (int i = 0; i < BASE_ROWS; ++i) rows[i] = 0.0f;
-          if (k == 0 && app) {
-            const float* f = features + static_cast<long long>(b.gid[j]) * C;
-            float G_all = 0.0f, G_op = 0.0f;
-            for (int c = 0; c < C; ++c) {
-              const float fv = __ldg(f + c);
-              const float g = gp[c * HW];
-              G_all = G_all + g * fv;
-              G_op = G_op + (g * mask[c]) * fv;
-            }
-            pre_all = pre_all + G_all * w;
-            pre_op = pre_op + G_op * w;
-            const float one_m = 1.0f - alpha;
-            const float dal_all = G_all * T_excl - ((tot_all - pre_all) + Tfin * B_all) / one_m;
-            const float dal_op = G_op * T_excl - ((tot_op - pre_op) + Tfin * B_op) / one_m;
-            const float dpow = q1.y * gexp * dal_all;
-            rows[0] = dpow * (-(q0.z * vx + q0.w * vy));   // duv x
-            rows[1] = dpow * (-(q1.x * vy + q0.w * vx));   // duv y
-            rows[2] = dpow * (-0.5f * vx * vx);            // dconic a
-            rows[3] = dpow * (-vx * vy);                   // dconic b
-            rows[4] = dpow * (-0.5f * vy * vy);            // dconic c
-            rows[5] = gexp * dal_op;                       // dop
-            rows[6] = fabsf(rows[0]);
-            rows[7] = fabsf(rows[1]);
-            rows[8] = dal_op;                              // dbias
-          }
-          // ---- this chunk's rows through the warp tree, 16 at a time ----
-          float* part = s_part + (jr * nwarp + warp) * RC;
-          for (int r = 0; r < RC && k * RC + r < NR; r += 16) {
-            const int row0 = k * RC + r;
-            float v[16];
-#pragma unroll
-            for (int i = 0; i < 16; ++i) {
-              const int c = row0 + i - BASE_ROWS;
-              v[i] = (app && c >= 0 && c < C) ? gp[c * HW] * w : 0.0f;
-              if (i < BASE_ROWS && row0 == 0) v[i] = rows[i];
-            }
-            const float sum = reduce_scatter16(v, lane);
-            if (!(lane & 1)) part[r + (lane >> 1)] = sum;
-          }
-          any_mask |= 1u << jr;
-        }
-        if (k == 0) {
-          T = Tk;
-          done = dk;
-        }
-        if (lane == 0) s_any[warp] = any_mask;
-        __syncthreads();
-        // ---- the warps' partial sums in warp order, all threads at once ----
-        const int rows_k = min(RC, NR - k * RC);
-        float* out = dgrad + static_cast<long long>(base + r0) * R;
-        for (int i = threadIdx.x; i < nr * rows_k; i += nthreads) {
-          const int jr = i / rows_k;
-          const int kk = i - jr * rows_k;
-          const int row = k * RC + kk;
-          if (row == BASE_ROWS - 1 && !has_bias) continue;
-          const float* part = s_part + jr * nwarp * RC + kk;
-          float acc = 0.0f;
-          for (int wi = 0; wi < nwarp; ++wi) {
-            if ((s_any[wi] >> jr) & 1u) acc = acc + part[wi * RC];
-          }
-          out[jr * R + output_row(row, C)] = acc;
-        }
-        __syncthreads();
+  // The block stages chunk k of the feature rows of slots base .. base +
+  // n - 1 and of the mask into chunk buffer fb, zero-padded to CC channels.
+  auto stage_f = [&](int base, int n, int k, int fb) {
+    const int c0 = k * CC;
+    const int ck = min(CC, C - c0);
+    float* f = reinterpret_cast<float*>(s_f4 + fb * WS * CC / 4);
+    for (int i = tid; i < WS * CC; i += nt) {
+      const int j = i / CC;
+      const int c = i - j * CC;
+      if (j < n && c < ck) {
+        __pipeline_memcpy_async(f + i, features + static_cast<long long>(gid[base + j]) * C + c0 + c, 4);
+      } else {
+        f[i] = 0.0f;
       }
     }
-  }
+    if (tid < CC) s_mask[fb * CC + tid] = tid < ck ? mask[c0 + tid] : 0.0f;
+  };
+  // The thread stages chunk k of its pixel's dL/dimage (gpix; null off the
+  // frame) into its column, zero-padded.
+  auto stage_g = [&](int k, const float* gpix) {
+    const int c0 = k * CC;
+    const int ck = min(CC, C - c0);
+    for (int c = 0; c < CC; ++c) {
+      if (gpix != nullptr && c < ck) {
+        __pipeline_memcpy_async(s_g + c * nt, gpix + c0 + c, 4);
+      } else {
+        s_g[c * nt] = 0.0f;
+      }
+    }
+  };
+  // The warps' partial sums of rows [0, rows) of the partials in warp
+  // order, onto the carry (the rows the earlier passes wrote), all threads
+  // at once; partial row r goes to row out_row(r) of its slot's dgrad row
+  // (none where out_row(r) < 0).
+  auto cross_warp = [&](float* out, int n, int rows, bool first, auto out_row) {
+    for (int i = tid; i < n * rows; i += nt) {
+      const int j = i / rows;
+      const int r = i - j * rows;
+      const int o = out_row(r);
+      if (o < 0) continue;
+      const float* pp = s_part + j * nw * 16 + r;
+      float acc = first ? 0.0f : out[j * R + o];
+      for (int wi = 0; wi < nw; ++wi) {
+        if ((s_any[wi] >> j) & 1u) acc = acc + pp[wi * 16];
+      }
+      out[j * R + o] = acc;
+    }
+  };
 
-  if (ncontrib != nullptr && inside) ncontrib[pix] = cnt;
+  for (int p0 = 0; p0 < P; p0 += nt) {
+    const int p = p0 + tid;
+    const int x = tx0 + p % tw;
+    const int y = ty0 + p / tw;
+    const bool inside = p < P && x < W && y < H;
+    const bool first = p0 == 0;   // the first pass writes the rows, later ones add to them
+    const float pxf = static_cast<float>(x);
+    const float pyf = static_cast<float>(y);
+    const long long pix = static_cast<long long>(y) * W + x;
+    const float* gpix = inside ? grad + pix * C : nullptr;
+
+    if (start < end) {
+      WideBatch::at(smem, 0, 0).load(gid, rec, features, 0, start, min(WS, end - start), C, 0);
+      stage_f(start, min(WS, end - start), 0, 0);
+      stage_g(0, gpix);
+    }
+    __pipeline_commit();
+
+    // per-pixel constants of the backward, each sum in channel order
+    float B_all = 0.0f, B_op = 0.0f, tot_all = 0.0f, tot_op = 0.0f, Tfin = 0.0f;
+    if (inside) {
+      Tfin = final_T[pix];
+      for (int c = 0; c < C; ++c) {
+        const float g = gpix[c];
+        const float gm = g * mask[c];
+        const float o = image[pix * C + c];
+        B_all = B_all + g * bg[c];
+        B_op = B_op + gm * bg[c];
+        tot_all = tot_all + g * o;
+        tot_op = tot_op + gm * o;
+      }
+      tot_all = tot_all - Tfin * B_all;
+      tot_op = tot_op - Tfin * B_op;
+    }
+
+    float T = 1.0f;
+    float pre_all = 0.0f, pre_op = 0.0f;
+    int cnt = 0;
+    bool done = !inside;
+    int q = 0;    // record buffer of this batch
+    int fq = 0;   // chunk buffer of this (batch, chunk)
+    for (int base = start; base < end; base += WS, q ^= 1) {
+      // Batch q's records and its chunk 0 have landed; the barrier also
+      // frees the other buffers and the partial rows of the last batch.
+      __pipeline_wait_prior(0);
+      if (__syncthreads_count(done) == nt) {
+        // every pixel of the pass has stopped: the rest of the tile's slots
+        // get zero rows (later passes leave them as they are)
+        if (first) {
+          for (long long i = static_cast<long long>(base) * R + tid; i < static_cast<long long>(end) * R; i += nt)
+            dgrad[i] = 0.0f;
+        }
+        break;
+      }
+      const int n = min(WS, end - base);
+      if (base + WS < end) {
+        WideBatch::at(smem, q ^ 1, 0).load(gid, rec, features, 0, base + WS, min(WS, end - base - WS), C, 0);
+      }
+      const WideBatch b = WideBatch::at(smem, q, 0);
+
+      // ---- the walk, once: K1's forward step, term for term ----
+      const float T0 = T;
+      unsigned app = 0u;
+      for (int j = 0; !done && j < n; ++j) {
+        const float4 r0 = b.rec[2 * j];       // ux, uy, conic a, conic b
+        const float4 r1 = b.rec[2 * j + 1];   // conic c, opacity, bias, pad
+        const float vx = r0.x - pxf;
+        const float vy = r0.y - pyf;
+        const float power = -0.5f * (r0.z * (vx * vx) + r1.x * (vy * vy)) - r0.w * vx * vy;
+        if (!(power <= 0.0f)) continue;   // as the plain version's test
+        float raw = r1.y * expf(power);
+        if (has_bias) raw = raw + r1.z;
+        const float alpha = fminf(ALPHA_MAX, raw);
+        if (alpha < ALPHA_MIN) continue;
+        const float next_T = T * (1.0f - alpha);
+        if (next_T < T_EPS) {
+          done = true;
+          break;
+        }
+        s_w[j * nt] = alpha * T;
+        app |= 1u << j;
+        ++cnt;
+        T = next_T;
+      }
+      const unsigned any = __reduce_or_sync(FULL, app);   // the slots this warp applied
+      if (lane == 0) s_any[warp] = any;
+
+      float G_all[WS], G_op[WS];
+#pragma unroll
+      for (int j = 0; j < WS; ++j) G_all[j] = G_op[j] = 0.0f;
+      float* out = dgrad + static_cast<long long>(base) * R;
+      for (int k = 0; k < nk; ++k, fq ^= 1) {
+        if (k > 0) {   // chunk k has landed; the barrier publishes it
+          __pipeline_wait_prior(0);
+          __syncthreads();
+        }
+        // the next (batch, chunk)'s feature rows into the other buffer
+        const int nb = k + 1 < nk ? base : base + WS;
+        if (nb < end) stage_f(nb, min(WS, end - nb), (k + 1) % nk, fq ^ 1);
+        __pipeline_commit();
+
+        const int c0 = k * CC;
+        const int ck = min(CC, C - c0);
+        const float4* sf = s_f4 + fq * WS * CC / 4;
+        const float* sm = s_mask + fq * CC;
+
+        // ---- G += the chunk's terms, all slots at once, channel order ----
+#pragma unroll 1
+        for (int c4 = 0; c4 < (ck + 3) / 4; ++c4) {
+          const float g0 = s_g[(4 * c4) * nt], g1 = s_g[(4 * c4 + 1) * nt];
+          const float g2 = s_g[(4 * c4 + 2) * nt], g3 = s_g[(4 * c4 + 3) * nt];
+          const float m0 = g0 * sm[4 * c4], m1 = g1 * sm[4 * c4 + 1];
+          const float m2 = g2 * sm[4 * c4 + 2], m3 = g3 * sm[4 * c4 + 3];
+#pragma unroll
+          for (int j = 0; j < WS; ++j) {
+            if ((any >> j) & 1u) {
+              // padded channels hold 0 in g and f: adding +0.0 leaves G as it
+              // is (G starts at +0.0 and so is never -0.0)
+              const float4 f = sf[j * (CC / 4) + c4];
+              G_all[j] = G_all[j] + g0 * f.x;
+              G_all[j] = G_all[j] + g1 * f.y;
+              G_all[j] = G_all[j] + g2 * f.z;
+              G_all[j] = G_all[j] + g3 * f.w;
+              G_op[j] = G_op[j] + m0 * f.x;
+              G_op[j] = G_op[j] + m1 * f.y;
+              G_op[j] = G_op[j] + m2 * f.z;
+              G_op[j] = G_op[j] + m3 * f.w;
+            }
+          }
+        }
+
+        // ---- the chunk's dfeat rows g_c w through the warp tree ----
+        const bool last = k == nk - 1;
+        float gv[16];   // gv[s] = g of channel s ^ order
+#pragma unroll
+        for (int s = 0; s < 16; ++s) gv[s] = s_g[s * nt];
+        swap_pairs<8>(gv, order & 8);
+        swap_pairs<4>(gv, order & 4);
+        swap_pairs<2>(gv, order & 2);
+        swap_pairs<1>(gv, order & 1);
+        // the next chunk's gradient (the next batch's first), into the column just read
+        if (!last || base + WS < end) stage_g(last ? 0 : k + 1, gpix);
+        __pipeline_commit();
+        for (int j = 0; j < n; ++j) {
+          if (!((any >> j) & 1u)) continue;   // all rows of this warp are 0
+          const float w = ((app >> j) & 1u) ? s_w[j * nt] : 0.0f;
+          float v[16];
+#pragma unroll
+          for (int s = 0; s < 16; ++s) v[s] = gv[s] * w;
+          const float sum = reduce_scatter16_ordered(v);
+          if (!(lane & 1)) s_part[(j * nw + warp) * 16 + (lane >> 1)] = sum;
+        }
+        __syncthreads();
+        cross_warp(out, n, ck, first, [&](int r) { return 6 + c0 + r; });
+        if (!last) continue;
+        __syncthreads();   // the partial rows are free again
+
+        // ---- after the last chunk: prefix sums and the base rows ----
+#pragma unroll
+        for (int j = 0; j < WS; ++j) {
+          if ((any >> j) & 1u) {
+            s_w[j * nt] = G_all[j];
+            s_gop[j * nt] = G_op[j];
+          }
+        }
+        float Tb = T0;
+        for (int j = 0; j < n; ++j) {
+          if (!((any >> j) & 1u)) continue;
+          float v[16];
+#pragma unroll
+          for (int i = 0; i < 16; ++i) v[i] = 0.0f;
+          if ((app >> j) & 1u) {
+            const float4 r0 = b.rec[2 * j];
+            const float4 r1 = b.rec[2 * j + 1];
+            const float vx = r0.x - pxf;
+            const float vy = r0.y - pyf;
+            const float power = -0.5f * (r0.z * (vx * vx) + r1.x * (vy * vy)) - r0.w * vx * vy;
+            const float gexp = expf(power);
+            float raw = r1.y * gexp;
+            if (has_bias) raw = raw + r1.z;
+            const float alpha = fminf(ALPHA_MAX, raw);
+            const float T_excl = Tb;
+            const float Ga = s_w[j * nt];
+            const float Go = s_gop[j * nt];
+            const float w = alpha * Tb;
+            Tb = Tb * (1.0f - alpha);
+            pre_all = pre_all + Ga * w;
+            pre_op = pre_op + Go * w;
+            const float one_m = 1.0f - alpha;
+            const float dal_all = Ga * T_excl - ((tot_all - pre_all) + Tfin * B_all) / one_m;
+            const float dal_op = Go * T_excl - ((tot_op - pre_op) + Tfin * B_op) / one_m;
+            const float dpow = r1.y * gexp * dal_all;
+            v[0] = dpow * (-(r0.z * vx + r0.w * vy));   // duv x
+            v[1] = dpow * (-(r1.x * vy + r0.w * vx));   // duv y
+            v[2] = dpow * (-0.5f * vx * vx);            // dconic a
+            v[3] = dpow * (-vx * vy);                   // dconic b
+            v[4] = dpow * (-0.5f * vy * vy);            // dconic c
+            v[5] = gexp * dal_op;                       // dop
+            v[6] = fabsf(v[0]);
+            v[7] = fabsf(v[1]);
+            v[8] = dal_op;                              // dbias
+          }
+          const float sum = reduce_scatter16(v, lane);
+          if (!(lane & 1)) s_part[(j * nw + warp) * 16 + (lane >> 1)] = sum;
+        }
+        __syncthreads();
+        cross_warp(out, n, BASE_ROWS, first,
+                   [&](int r) { return r == BASE_ROWS - 1 && !has_bias ? -1 : output_row(r, C); });
+      }
+    }
+    // the pass's copies have landed and every thread is past its reads
+    // before the next pass restages the buffers
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    if (ncontrib != nullptr && inside) ncontrib[pix] = cnt;
+  }
 }
 
 using KernelFn = void (*)(const int*, const int*, const float4*, const float*, const float*,
                           const float*, const float*, const float*, const float*, int, int,
                           int, int, int, int, float*, int*);
-using WideKernelFn = void (*)(const int*, const int*, const float4*, const float*, const float*,
+using TileKernelFn = void (*)(const int*, const int*, const float4*, const float*, const float*,
                               const float*, const float*, const float*, const float*, int, int,
-                              int, int, int, int, int, int, int, float*, int*);
+                              int, int, int, int, int, float*, int*);
 
 // [channel bucket 8 / 16 / 32 / 48 / 64][block bound 256 / 512]
 const KernelFn KERNELS[5][2] = {
@@ -548,21 +774,38 @@ const KernelFn KERNELS[5][2] = {
     {blend_backward_kernel<48, 256>, nullptr},
     {blend_backward_kernel<64, 256>, nullptr},
 };
-// [block bound 256 / 512 / 1024]
-const WideKernelFn WIDE_KERNELS[3] = {
-    blend_backward_wide_kernel<256>, blend_backward_wide_kernel<512>, blend_backward_wide_kernel<1024>,
+// [channel bucket 8 / 16 / 32 / 48 / 64]
+const TileKernelFn TILED_KERNELS[5] = {
+    blend_backward_tiled_kernel<8>, blend_backward_tiled_kernel<16>, blend_backward_tiled_kernel<32>,
+    blend_backward_tiled_kernel<48>, blend_backward_tiled_kernel<64>,
 };
+const TileKernelFn WIDE_KERNEL = blend_backward_wide_kernel;
 
-// The narrow instances take the launches above; the wide one everything else.
-bool narrow(int C, int threads) {
-  return threads % 32 == 0 && ((C <= NARROW_CHANNELS && threads <= NARROW_PIXELS) ||
-                               (C <= MEDIUM_CHANNELS && threads <= MEDIUM_PIXELS));
+int bucket(int C) { return C <= 8 ? 0 : (C <= 16 ? 1 : (C <= 32 ? 2 : (C <= 48 ? 3 : 4))); }
+
+// Which instance a launch runs: a narrow one (C <= 32 on a tile of whole
+// warps up to 512 pixels, C <= 64 up to 256), a tiled one (any other tile
+// at C <= 64) or the wide one (C > 64).
+enum Kind { NARROW, TILED, WIDE };
+
+Kind kind(int C, int pixels) {
+  if (C > MEDIUM_CHANNELS) return WIDE;
+  if (pixels % 32 == 0 && ((C <= NARROW_CHANNELS && pixels <= NARROW_PIXELS) || pixels <= MEDIUM_PIXELS))
+    return NARROW;
+  return TILED;
 }
 
-KernelFn pick(int C, int threads) {
-  const int cb = C <= 8 ? 0 : (C <= 16 ? 1 : (C <= 32 ? 2 : (C <= 48 ? 3 : 4)));
-  return KERNELS[cb][threads <= 256 ? 0 : 1];
+// The block size: the tile, or for a tiled launch the tile rounded up to
+// whole warps, at most WIDE_NT; the wide instance always WIDE_NT.
+int block_threads(Kind k, int pixels) {
+  if (k == NARROW) return pixels;
+  if (k == WIDE) return WIDE_NT;
+  return min(WIDE_NT, (pixels + 31) / 32 * 32);
 }
+
+KernelFn narrow_instance(int C, int pixels) { return KERNELS[bucket(C)][pixels <= 256 ? 0 : 1]; }
+
+TileKernelFn tile_instance(Kind k, int C) { return k == TILED ? TILED_KERNELS[bucket(C)] : WIDE_KERNEL; }
 
 size_t shared_bytes(int C, int threads) {
   return sizeof(float4) * 2 * static_cast<size_t>(BwdBatch::float4s(C)) +
@@ -570,28 +813,25 @@ size_t shared_bytes(int C, int threads) {
                           threads / 32 + 2 * C);
 }
 
-// The wide instance's threads (the tile rounded up to whole warps), slots
-// per round and rows per chunk: a round's partials fill at most PART_FLOATS.
-struct WidePlan {
-  int threads, SR, RC;
-};
-
-WidePlan wide_plan(int C, int pixels) {
-  const int threads = (pixels + 31) / 32 * 32;
-  const int nwarp = threads / 32;
-  const int rp = padded_rows(C);
-  if (nwarp * rp <= PART_FLOATS) return {threads, min(S, PART_FLOATS / (nwarp * rp)), rp};
-  return {threads, 1, PART_FLOATS / nwarp / 16 * 16};
-}
-
-size_t wide_shared_bytes(const WidePlan& p) {
+size_t wide_shared_bytes() {
+  constexpr int nt = WIDE_NT;
   return sizeof(float4) * 2 * static_cast<size_t>(WideBatch::float4s(0)) +
-         sizeof(float) * static_cast<size_t>(p.SR) * (p.threads / 32) * p.RC +
-         sizeof(unsigned) * (p.threads / 32);
+         sizeof(float) * (2 * WS * CC + 2 * CC + static_cast<size_t>(CC + 2 * WS) * nt + WS * (nt / 32) * 16) +
+         sizeof(unsigned) * (nt / 32);
 }
 
-WideKernelFn pick_wide(int threads) {
-  return WIDE_KERNELS[threads <= 256 ? 0 : (threads <= 512 ? 1 : 2)];
+size_t instance_shared_bytes(Kind k, int C, int pixels) {
+  return k == WIDE ? wide_shared_bytes() : shared_bytes(C, block_threads(k, pixels));
+}
+
+
+// Let fn take `shared` bytes of dynamic shared memory (above 48 KB only
+// with the opt-in).
+template <typename Fn>
+int allow_shared(Fn fn, size_t shared) {
+  if (shared <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(shared)));
 }
 
 }  // namespace
@@ -603,68 +843,58 @@ WideKernelFn pick_wide(int threads) {
 // all f32 on the device. Writes dgrad [M, R] f32 with R = 8 + C (+1 with a
 // bias) for every slot in [edges[0], edges[T]); slots past edges[T] are
 // not written. ncontrib [H, W] int32 (or null) gets the replay's applied
-// count. Any C >= 1 and tw*th in 1..1024 (the caller checks). C <= 32 on
-// a tile of whole warps up to 512 pixels, or C <= 64 up to 256 pixels,
-// runs a narrow instance, which reads grad; anything else the wide
-// instance, which reads grad_t, the same gradient channel-major [C, H, W]
-// (null for a narrow launch). One block per tile. Returns
-// cudaGetLastError().
+// count. Any C >= 1 and any tile (`kind` picks the instance); one block
+// per tile. Returns cudaGetLastError().
 extern "C" int blend_backward(const void* gid, const void* edges, const void* rec,
                               const void* features, const void* bg, const void* mask,
                               const void* image, const void* final_T, const void* grad,
-                              const void* grad_t, int has_bias, int C, int W, int H, int tw,
-                              int th, void* dgrad, void* ncontrib, void* stream) {
+                              int has_bias, int C, int W, int H, int tw, int th, void* dgrad,
+                              void* ncontrib, void* stream) {
+  if (tw < 1 || th < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int tgx = (W + tw - 1) / tw;
   const int tgy = (H + th - 1) / th;
-  const int threads = tw * th;
+  const int pixels = tw * th;
+  const Kind k = kind(C, pixels);
+  const size_t shared = instance_shared_bytes(k, C, pixels);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (threads < 1 || threads > 1024 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (!narrow(C, threads)) {
-    if (grad_t == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    const WidePlan p = wide_plan(C, threads);
-    pick_wide(p.threads)<<<tgx * tgy, p.threads, wide_shared_bytes(p), s>>>(
-        static_cast<const int*>(gid), static_cast<const int*>(edges),
-        static_cast<const float4*>(rec), static_cast<const float*>(features),
-        static_cast<const float*>(bg), static_cast<const float*>(mask),
-        static_cast<const float*>(image), static_cast<const float*>(final_T),
-        static_cast<const float*>(grad_t), has_bias, C, W, H, tw, threads, tgx, p.SR, p.RC,
-        static_cast<float*>(dgrad), static_cast<int*>(ncontrib));
-    return static_cast<int>(cudaGetLastError());
-  }
-  const KernelFn fn = pick(C, threads);
-  const size_t shared = shared_bytes(C, threads);
-  if (shared > 48 * 1024) {
-    const int err = static_cast<int>(cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shared)));
+  const auto* gid_ = static_cast<const int*>(gid);
+  const auto* edges_ = static_cast<const int*>(edges);
+  const auto* rec_ = static_cast<const float4*>(rec);
+  const auto* f_ = static_cast<const float*>(features);
+  const auto* bg_ = static_cast<const float*>(bg);
+  const auto* mask_ = static_cast<const float*>(mask);
+  const auto* image_ = static_cast<const float*>(image);
+  const auto* fT_ = static_cast<const float*>(final_T);
+  const auto* grad_ = static_cast<const float*>(grad);
+  auto* dgrad_ = static_cast<float*>(dgrad);
+  auto* nc_ = static_cast<int*>(ncontrib);
+  if (k == NARROW) {
+    const KernelFn fn = narrow_instance(C, pixels);
+    const int err = allow_shared(fn, shared);
     if (err != 0) return err;
+    fn<<<tgx * tgy, pixels, shared, s>>>(gid_, edges_, rec_, f_, bg_, mask_, image_, fT_, grad_, has_bias, C, W,
+                                        H, tw, tgx, dgrad_, nc_);
+  } else {
+    const TileKernelFn fn = tile_instance(k, C);
+    const int err = allow_shared(fn, shared);
+    if (err != 0) return err;
+    fn<<<tgx * tgy, block_threads(k, pixels), shared, s>>>(gid_, edges_, rec_, f_, bg_, mask_, image_, fT_, grad_,
+                                                          has_bias, C, W, H, tw, pixels, tgx, dgrad_, nc_);
   }
-  fn<<<tgx * tgy, threads, shared, s>>>(
-      static_cast<const int*>(gid), static_cast<const int*>(edges),
-      static_cast<const float4*>(rec), static_cast<const float*>(features),
-      static_cast<const float*>(bg), static_cast<const float*>(mask),
-      static_cast<const float*>(image), static_cast<const float*>(final_T),
-      static_cast<const float*>(grad), has_bias, C, W, H, tw, tgx,
-      static_cast<float*>(dgrad), static_cast<int*>(ncontrib));
   return static_cast<int>(cudaGetLastError());
 }
-
-// 1 if a launch with these C and tile sizes runs a narrow instance (which
-// reads grad), 0 if it runs the wide one (which reads grad_t).
-extern "C" int blend_backward_narrow(int C, int tw, int th) { return narrow(C, tw * th) ? 1 : 0; }
 
 // Registers per thread, local (spill) bytes per thread and shared bytes per
 // block (static + dynamic) of the instance a launch with these C and tile
 // sizes runs: out[0..2]. Returns the CUDA error code.
 extern "C" int blend_backward_attributes(int C, int tw, int th, int* out) {
   cudaFuncAttributes a;
-  const int threads = tw * th;
-  const bool nar = narrow(C, threads);
-  const WidePlan p = wide_plan(C, threads);
-  const int err = static_cast<int>(
-      nar ? cudaFuncGetAttributes(&a, pick(C, threads)) : cudaFuncGetAttributes(&a, pick_wide(p.threads)));
+  const Kind k = kind(C, tw * th);
+  const int err = static_cast<int>(k == NARROW ? cudaFuncGetAttributes(&a, narrow_instance(C, tw * th))
+                                                : cudaFuncGetAttributes(&a, tile_instance(k, C)));
   if (err != 0) return err;
   out[0] = a.numRegs;
   out[1] = static_cast<int>(a.localSizeBytes);
-  out[2] = static_cast<int>(a.sharedSizeBytes + (nar ? shared_bytes(C, threads) : wide_shared_bytes(p)));
+  out[2] = static_cast<int>(a.sharedSizeBytes + instance_shared_bytes(k, C, tw * th));
   return 0;
 }

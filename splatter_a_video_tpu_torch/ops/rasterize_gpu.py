@@ -46,9 +46,8 @@ LAUNCHES = {"blend_forward": 0, "expand_intersections": 0, "blend_backward": 0, 
 _ARGTYPES = {
     "blend_forward": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5,
     "expand_intersections": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3,
-    "blend_backward": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3,
+    "blend_backward": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3,
     "reduce_gaussians": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3,
-    "blend_backward_narrow": [ctypes.c_int] * 3,
 }
 # <name>_attributes(C, tw, th, int out[3]) of every kernel library
 _ATTR_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -123,6 +122,13 @@ def _launch(name: str, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
     LAUNCHES[name] += 1
+
+
+def _check_tile(tile: Tuple[int, int]) -> None:
+    """K1 and K3 take a tile of any size (a large one in several blocks or
+    passes of at most 256 pixels), but not an empty one."""
+    if min(tile) < 1:
+        raise ValueError(f"tile {tile}: both sides must be at least 1")
 
 
 def _require_cuda(t: torch.Tensor, name: str) -> None:
@@ -277,8 +283,7 @@ def blend_forward(
     tw, th = tile
     tgx, tgy = tile_grid(W, H, tile)
     N, C = features.shape
-    if not 0 < tw * th <= 1024:
-        raise ValueError(f"tile {tile}: tw*th must be in 1..1024")
+    _check_tile(tile)
     rec = _checked_records(uv, conic, opacity, opacity_bias, N, dev)
     ptrs = [
         _check(gid, "gid", torch.int32, gid.shape[:1], dev),
@@ -449,8 +454,7 @@ def blend_backward(
     tw, th = tile
     tgx, tgy = tile_grid(W, H, tile)
     N, C = features.shape
-    if not 0 < tw * th <= 1024:
-        raise ValueError(f"tile {tile}: tw*th must be in 1..1024")
+    _check_tile(tile)
     M = gid.shape[0]
     rec = _checked_records(uv, conic, opacity, opacity_bias, N, dev)
     ptrs = [
@@ -464,10 +468,6 @@ def blend_backward(
         _check(final_T, "final_T", torch.float32, (H, W), dev),
         _check(grad, "grad", torch.float32, (H, W, C), dev),
     ]
-    # K3's wide instance (csrc/blend_backward.cu) reads dL/dimage channel-major
-    narrow = _kernel("blend_backward", "blend_backward_narrow")(C, tw, th)
-    grad_t = None if narrow else grad.permute(2, 0, 1).contiguous()
-    ptrs.append(None if grad_t is None else grad_t.data_ptr())
     R = 8 + C + (opacity_bias is not None)
     dgrad = torch.empty((M, R), dtype=torch.float32, device=dev)
     ncontrib = torch.empty((H, W), dtype=torch.int32, device=dev) if return_ncontrib else None

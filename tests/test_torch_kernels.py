@@ -133,9 +133,10 @@ BLEND_CASES = [
     ((16, 16), 7, 4, True, True),
     ((32, 16), 20, 0, False, True),
 ]
-# C above 32 (K1's groups of 32 channels; K3's buckets 48 and 64 up to 256
-# pixels, its wide instance beyond), and K3's wide instance at tiles above
-# 512 pixels or not of whole warps
+# C above 32 and tiles above 1024 pixels (K1's wide instance: blocks of at
+# most 256 pixels and 64 channels), and K3's wide instance (any C above 32,
+# tiles above 512 pixels or not of whole warps; in passes of 256 pixels
+# above 256, its channels in chunks of 16)
 WIDE_CASES = [
     ((16, 16), 33, 0, False, False),
     ((32, 16), 40, 0, False, False),
@@ -147,6 +148,15 @@ WIDE_CASES = [
     ((12, 12), 7, 0, False, False),
     ((12, 12), 52, 0, True, True),
     ((4, 4), 3, 0, False, False),
+    ((64, 32), 7, 0, False, False),
+    ((48, 48), 52, 0, False, False),
+    # one case per wide instance, at phase 23's widths: K1's groups of 8
+    # (K3 with one chunk, fused with the base rows), 16 (one chunk, not
+    # fused), 32 and 64 on tiles of several passes, many batches and a bias
+    ((64, 32), 7, 4, True, True),
+    ((48, 48), 16, 0, False, True),
+    ((64, 32), 32, 8, True, False),
+    ((48, 48), 72, 0, True, False),
 ]
 FORWARD_CASES = BLEND_CASES + WIDE_CASES + [
     ((16, 16), 4, 0, False, False),
@@ -234,12 +244,17 @@ def test_blend_backward_matches_plain(case):
     ("blend_backward", 52, (16, 16)), ("blend_backward", 200, (16, 16)), ("blend_backward", 7, (32, 32)),
     ("blend_backward", 52, (32, 32)), ("blend_backward", 7, (12, 12)),
     ("reduce_gaussians", 60, (16, 16)), ("reduce_gaussians", 208, (16, 16)),
+    ("blend_forward", 7, (64, 32)), ("blend_forward", 52, (48, 48)), ("blend_backward", 7, (64, 32)),
+    ("blend_backward", 52, (48, 48)),
 ])
 def test_kernel_attributes(name, C, tile):
-    """Each library reports its instance's registers, spills and shared bytes."""
+    """Each library reports its instance's registers, spills and shared bytes;
+    no blend instance spills."""
     a = rasterize_gpu.kernel_attributes(name, C, tile)
     assert set(a) == {"regs", "local_bytes", "shared_bytes"}
     assert 0 < a["regs"] <= 255 and a["local_bytes"] >= 0 and a["shared_bytes"] >= 0
+    if name.startswith("blend"):
+        assert a["local_bytes"] == 0
 
 
 def test_reduce_gaussians_matches_plain_and_is_deterministic():

@@ -2,11 +2,13 @@
 `rasterize_gpu.splat_scene` (on the CPU, the plain versions of K1, K3 and
 K4) against the JAX `rasterize_tpu.splat_scene` (Pallas in interpret mode,
 exact sort) on the 64x48 scene, forward and gradients, at C = 33 and 52 on
-16x16 tiles and at C = 7 on 32x32 tiles (1024 pixels) and 12x12 tiles (144
-pixels, not whole warps of 32); then one train step that blends a 32-wide
-DINO attribute (C = 52) in both packages. Bars of `test_rasterize.py`:
-image and final_T atol 2e-5, ncontrib exact, gradients atol 3e-4 / rtol
-2e-3; the train step's bars are those of `test_torch_train_step.py`.
+16x16 tiles, at C = 7 on 32x32 tiles (1024 pixels) and 12x12 tiles (144
+pixels, not whole warps of 32), and on tiles above the 1024 threads of a
+block: C = 7 on 64x32 (2048 pixels) and C = 33 on 48x48 (2304); then one
+train step that blends a 32-wide DINO attribute (C = 52) in both packages.
+Bars of `test_rasterize.py`: image and final_T atol 2e-5, ncontrib exact,
+gradients atol 3e-4 / rtol 2e-3; the train step's bars are those of
+`test_torch_train_step.py`.
 
 On the card the same widths and tiles run the kernels' wide instances;
 `tests/test_torch_kernels.py` holds those to the plain versions."""
@@ -38,6 +40,8 @@ CASES = {
     "C52_masked": (52, (16, 16), 4, False),
     "C7_32x32": (7, (32, 32), 4, False),
     "C7_12x12": (7, (12, 12), 4, True),
+    "C7_64x32": (7, (64, 32), 4, False),
+    "C33_48x48": (33, (48, 48), 4, True),
 }
 DINO = 32
 
@@ -102,7 +106,7 @@ def test_wide_blend_matches_jax(case):
         np.testing.assert_allclose(g.numpy(), r, atol=G_ATOL, rtol=G_RTOL, err_msg=name)
 
 
-@pytest.mark.parametrize("P_", [144, 1, 31, 33, 1024])
+@pytest.mark.parametrize("P_", [144, 1, 31, 33, 1024, 2048, 2304])
 def test_tile_tree_sum_pads_the_last_warp(P_):
     """A tile of P pixels sums like the same tile padded with zero pixels to
     whole warps: the tree of whole warps is unchanged, and absent lanes add
