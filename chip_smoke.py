@@ -54,6 +54,10 @@ and holds each against its plain PyTorch version at the flagship shapes
      the scene's positions and the distortion loss, each against the CPU
      (values and gradients) and each gradient twice on the card,
      `torch.equal`;
+  the lbs scene's random draws (C.7): `create_scene(traj="lbs")` without
+     a key or generator twice on the card at the flagship size, every
+     parameter `torch.equal`, and its colours and skinning logits on the
+     card equal to the CPU call's at LBS_POINTS points;
   the blend's wide instances (phase 23): ten `make_train_step` steps and a
      density step at the training shape with a 32-wide DINO attribute
      blended and supervised (C = 52, R = 60 rows into K4), one
@@ -145,6 +149,9 @@ DA_TOL, TAPIR_ATOL, TAPIR_RTOL, LPIPS_RTOL = 1e-3, 5e-3, 1e-3, 2e-4
 HELPERS_T, HELPERS_K, HELPERS_RTOL = 0.0, 10, 1e-4
 HELPERS_PATCH, HELPERS_PATCHES, HELPERS_SAMPLES, HELPERS_KNN, HELPERS_BINS = 32, 128, 512, 10, 8
 HELPERS_DEPTH_RANGE = (0.8, 1.5)
+# C.7, the lbs scene's draws: the card against the CPU at this size (the CPU's kNN of the flagship's
+# 100,000 points would take minutes)
+LBS_POINTS, LBS_CAPACITY = 8192, 16384
 # phase 23, the blend's wide instances: the training shape with a 32-wide DINO attribute (C = 52, R = 60),
 # its render (C = 49), and K1 / K3 / K4 at more widths and tiles (16x16 unless given)
 WIDE_DINO, WIDE_STEPS = 32, 10
@@ -887,7 +894,7 @@ def blend_instance(tag: str, pr, rc, cpm: float, seed: int, card: str, K: int = 
               f"ncontrib == K1's); K4 on its rows torch.equal to plain: {same4}; K3 {ms3:.4f} ms, plain "
               f"{plain3:.3f} ms, bound {bound3:.4f} ms ({by3}: {ops3:.3g} flops, {nbytes3:.3g} B); K3 "
               f"{resources(attrs3)}; K4 at R = {R} {ms4:.4f} ms, plain {plain4:.3f} ms, index_add_ {lib4:.4f} ms, "
-              f"bound {bound4:.4f} ms (bytes: {bytes4:.3g} B), {resources(attrs4)} {card}")
+              f"bound {bound4:.4f} ms (bytes: {bytes4:.3g} B), {bound4 / ms4:.1%} of it; {resources(attrs4)} {card}")
     return rows
 
 
@@ -1592,6 +1599,33 @@ def helpers_phase(args, dev, card: str, scene) -> None:
                    f"value + gradients, median wall of {REPS} with a synchronize: " + "; ".join(parts) + f" {card}")
 
 
+def lbs_draws_check(card: str) -> None:
+    """C.7: `create_scene(traj="lbs")` with neither key nor generator draws
+    its colours and skinning logits from JAX's PRNGKey(0) on the host:
+    twice on the card at the flagship size, every parameter `torch.equal`;
+    at LBS_POINTS points, the drawn parameters on the card `torch.equal` to
+    the CPU call's."""
+    import torch
+
+    from splatter_a_video_tpu_torch.models import gaussians, init_points
+
+    def scene(n, cap, dev):
+        cfg = gaussians.SceneConfig(capacity=cap, num_frames=FRAMES, traj="lbs")
+        return gaussians.create_scene(cfg, init_points.positive_z_random(n), device=dev)
+
+    a, b = scene(ALIVE, CAPACITY, DEVICE), scene(ALIVE, CAPACITY, DEVICE)
+    twice = all(torch.equal(a.params[k], b.params[k]) for k in a.params)
+    drawn = ("features_dc", "pos_lbs_logits")
+    card_s, cpu_s = scene(LBS_POINTS, LBS_CAPACITY, DEVICE), scene(LBS_POINTS, LBS_CAPACITY, "cpu")
+    as_cpu = all(torch.equal(card_s.params[k].cpu(), cpu_s.params[k]) for k in drawn)
+    spread = float(a.params["pos_lbs_logits"].std())
+    require(twice and as_cpu and 0.005 < spread < 0.02,
+            f"lbs draws: twice equal {twice}, as the CPU's {as_cpu}, logits std {spread:.4g}")
+    log("lbs", f"create_scene(traj='lbs') without a key, {ALIVE} points in {CAPACITY} slots, twice on the card: "
+               f"all {len(a.params)} parameters torch.equal; {', '.join(drawn)} at {LBS_POINTS} points "
+               f"torch.equal to the CPU's; logits std {spread:.5f} (0.01 N(0, 1)) {card}")
+
+
 def wide_training_config():
     """Phase 23's trainer: the training shape with the render attributes
     blended (C = WIDE_TRAIN_C with a WIDE_DINO-wide DINO attribute) and the
@@ -2224,6 +2258,7 @@ def main() -> int:
 
     # ---- 22. the loss library on the card ------------------------------------
     helpers_phase(args, dev, card, scene)
+    lbs_draws_check(card)
 
     # ---- 23. the blend's wide instances: C = 52 train steps, C = 49 render ----
     wide_rows, wide_launches = wide_phase(args, dev, card, cpm)

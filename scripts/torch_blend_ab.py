@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time one tree's blend kernels on the card at `chip_smoke.py`'s shapes.
 
-    python3 scripts/torch_blend_ab.py [--tree DIR] [--label NAME] [--seed 0]
+    python3 scripts/torch_blend_ab.py [--tree DIR] [--label NAME] [--seed 0] [--kernels K ...]
 
 Imports `splatter_a_video_tpu_torch` from DIR (default: this checkout) and
 the scenes, blends and timer from this checkout's `chip_smoke.py`, builds
@@ -10,10 +10,14 @@ events (`chip_smoke.cuda_ms`, the median of 20 runs behind a device-side
 sleep):
 
   main path: K2 and K1 on frame 0 of the flagship render (C = 20), K3 at
-     C = 7 on the training frame (16x16) and K4 on its rows;
-  phase 23: K1 and K3 on the training frame at each blend of
-     `chip_smoke.wide_blends` (C = 33, 52, 64 and 200 on 16x16 tiles, and
-     WIDE_TILES, among them the tiles above 1024 pixels).
+     C = 7 on the training frame (16x16) and K4 on its rows (R = 15);
+  phase 23: K1, K3 and K4 on K3's rows on the training frame at each blend
+     of `chip_smoke.wide_blends` (C = 33, 52, 64 and 200 on 16x16 tiles,
+     R = 41, 60, 72 and 208, and WIDE_TILES, among them the tiles above
+     1024 pixels).
+
+`--kernels` times only the named kernels (the others still run where a
+timed one needs their outputs), for a quick A/B of one kernel's variants.
 
 To compare two trees on one card, run it for each in turns in one call
 (parent, change, change, parent). A blend the tree refuses is recorded with
@@ -41,6 +45,7 @@ def main() -> int:
     ap.add_argument("--tree", default=str(ROOT), help="root of the checkout whose port is timed")
     ap.add_argument("--label", default="", help="a name for this tree in the output")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels", nargs="*", metavar="K", help="time only these kernels (default: all four)")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))   # the tree's package
@@ -73,6 +78,8 @@ def main() -> int:
     cases = []
 
     def timed(name: str, kernel: str, C: int, tile, fn) -> None:
+        if args.kernels and kernel not in args.kernels:
+            return
         row = {"name": name, "kernel": kernel}
         try:
             row["ms"] = cs.cuda_ms(fn, cpm)
@@ -92,20 +99,22 @@ def main() -> int:
                                       rc.max_intersections, rc.max_tiles_per_gaussian, rc.block)
         k1a = (b.gid, b.edges, pr.uv, pr.conic, pr.opacity, feats, bg, cs.W, cs.H, tile)
         timed(name, "blend_forward", C, tile, lambda: rg.blend_forward(*k1a))
-        if not backward:
+        if not backward or (args.kernels and not {"blend_backward", "reduce_gaussians"} & set(args.kernels)):
             return
-        if "error" in cases[-1]:   # K3's wrapper refuses or takes the tile before it reads K1's outputs
-            out = (torch.zeros((cs.H, cs.W, C), device=dev), torch.zeros((cs.H, cs.W), device=dev))
-        else:
+        try:
             out = rg.blend_forward(*k1a)
+        except ValueError:   # K3's wrapper refuses or takes the tile before it reads K1's outputs
+            out = (torch.zeros((cs.H, cs.W, C), device=dev), torch.zeros((cs.H, cs.W), device=dev))
         g = torch.randn((cs.H, cs.W, C), generator=torch.Generator(device=dev).manual_seed(args.seed + 14),
                         device=dev)
         k3a = (b.gid, b.edges, pr.uv, pr.conic, pr.opacity, feats, bg, mask, out[0], out[1], g, cs.W, cs.H, tile)
         timed(name, "blend_backward", C, tile, lambda: rg.blend_backward(*k3a))
-        if "error" not in cases[-1] and C <= 7:
+        try:
             dg = rg.blend_backward(*k3a)
-            timed(f"{name} R={dg.shape[1]}", "reduce_gaussians", dg.shape[1], tile,
-                  lambda: rg.reduce_gaussians(dg, b.order, b.offs, b.tiles))
+        except ValueError:
+            return
+        timed(f"{name} R={dg.shape[1]}", "reduce_gaussians", dg.shape[1], tile,
+              lambda: rg.reduce_gaussians(dg, b.order, b.offs, b.tiles))
 
     with torch.no_grad():
         # ---- the main path: K2 and K1 (C = 20) on the render, K3 and K4 (C = 7) on the training frame

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Compare the SASS of the blend kernels' narrow instances in two builds.
+"""Compare the SASS of the blend kernels' narrow instances, or of K4's
+staging kernel (R <= 41), in two builds.
 
     python3 scripts/torch_sass_diff.py OLD.so NEW.so
 
-OLD and NEW are built kernel libraries of K1 or K3 (say the parent's and
-this tree's `splatter_a_video_tpu_torch/_build/blend_forward-<hash>.so`,
+OLD and NEW are built kernel libraries of K1, K3 or K4 (say the parent's
+and this tree's `splatter_a_video_tpu_torch/_build/blend_forward-<hash>.so`,
 each built by `ops._build.build()` in its own checkout). Disassembles both
 with `cuobjdump -sass` (the CUDA toolkit's; needs no GPU) and compares the
 instructions of each `blend_forward_kernel<CB, NT>` /
 `blend_backward_kernel<CB, NT>` instance, found by its template arguments
-whatever the rest of its name, with addresses and encodings stripped.
+whatever the rest of its name, and of `reduce_gaussians_kernel` (shown as
+CB = NT = 0), with addresses and encodings stripped.
 Prints one line per instance, "identical" or how many instructions differ;
 exits 1 if any differs or is missing from one side.
 """
@@ -22,7 +24,8 @@ import subprocess
 import sys
 from pathlib import Path
 
-NARROW = re.compile(r"(blend_forward_kernel|blend_backward_kernel)ILi(\d+)ELi(\d+)E(Lb0E)?E")
+NARROW = re.compile(r"(blend_forward_kernel|blend_backward_kernel)ILi(\d+)ELi(\d+)E(Lb0E)?E"
+                    r"|\d(reduce_gaussians_kernel)E")
 
 
 def cuobjdump() -> str:
@@ -48,7 +51,8 @@ def instances(lib: str) -> dict:
                 ins = line.split("*/", 1)[1].split(";")[0].strip()
                 if ins:
                     code.append(ins)
-        found[(m.group(1), int(m.group(2)), int(m.group(3)))] = code
+        key = (m.group(5), 0, 0) if m.group(5) else (m.group(1), int(m.group(2)), int(m.group(3)))
+        found[key] = code
     return found
 
 

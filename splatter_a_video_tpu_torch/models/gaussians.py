@@ -19,6 +19,7 @@ from ..device import resolve_device
 from ..ops import knn as _knn
 from ..ops import sh as _sh
 from ..ops.quaternion import inverse_sigmoid
+from ..train import prng
 from . import trajectory as _traj
 
 _MOTION = ("pos_poly_feat", "pos_fourier_feat", "rot_poly_feat", "rot_fourier_feat")
@@ -131,6 +132,7 @@ def create_scene(
     colors: Optional[np.ndarray] = None,
     init_opacity: float = 0.01,
     track_seq: Optional[np.ndarray] = None,
+    key: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     device="cuda",
 ) -> GaussianScene:
@@ -139,9 +141,14 @@ def create_scene(
     zero SH rest, motion coefficients and attributes; the rest of the
     capacity is dead and parked at z = -10.
 
-    colors: [N, 3] RGB in [0, 1]; None draws uniform(0.25, 0.75) from
-    `generator` (on the CPU). track_seq: [T, N, 3] for traj="cubic_spline".
-    traj="lbs" draws its skinning logits 0.01 N(0, 1) from `generator`.
+    colors: [N, 3] RGB in [0, 1]; None draws uniform(0.25, 0.75).
+    track_seq: [T, N, 3] for traj="cubic_spline". traj="lbs" draws its
+    skinning logits 0.01 N(0, 1). Both draws are JAX's from `key` (a
+    `prng.key`, default `prng.key(0)`, as the JAX package defaults to
+    `PRNGKey(0)`): the colours exactly, the logits within a few ulps
+    (`prng.normal`). They are made on the host, so every device starts
+    from the same bits. A `generator`, where given, replaces both with
+    torch's draws from it.
     """
     dev = resolve_device(device)
     N = positions.shape[0]
@@ -161,8 +168,11 @@ def create_scene(
     opacity = np.full(
         (cap, 1), inverse_sigmoid(torch.tensor(init_opacity, dtype=torch.float32)).item(), np.float32)
 
+    if key is None:
+        key = prng.key(0)
     if colors is None:
-        colors = torch.rand((N, 3), generator=generator).numpy() * 0.5 + 0.25
+        u = prng.uniform(key, (N, 3)) if generator is None else torch.rand((N, 3), generator=generator)
+        colors = u.numpy() * 0.5 + 0.25
     fdc = np.zeros((cap, 1, 3), np.float32)
     fdc[:N] = _sh.rgb_to_sh(torch.as_tensor(np.asarray(colors, np.float32))).numpy()[:, None, :]
     params = {
@@ -182,7 +192,9 @@ def create_scene(
         )
     if cfg.traj == "lbs":
         params.update(
-            pos_lbs_logits=0.01 * torch.randn((cap, cfg.num_bones), generator=generator).numpy(),
+            pos_lbs_logits=0.01 * (prng.normal(prng.fold_in(key, 1), (cap, cfg.num_bones))
+                                   if generator is None
+                                   else torch.randn((cap, cfg.num_bones), generator=generator)).numpy(),
             lbs_bone_poly=np.zeros((cfg.num_bones, cfg.poly_dim, 3), np.float32),
             lbs_bone_fourier=np.zeros((cfg.num_bones, cfg.fourier_dim, 3), np.float32),
         )

@@ -9,9 +9,9 @@ numpy (a few hundred thousand words at a density event, a few hundred per
 step) and the values go to the caller's device. What is exact and what is
 not:
 
-  * `key`, `split`, `random_bits`, `randint` and `uniform` are bit for
-    bit JAX's (XLA fuses uniform's scale and shift into one fused
-    multiply-add, done here in float64 and rounded once);
+  * `key`, `split`, `fold_in`, `random_bits`, `randint` and `uniform`
+    are bit for bit JAX's (XLA fuses uniform's scale and shift into one
+    fused multiply-add, done here in float64 and rounded once);
   * `normal` applies XLA's single-precision erfinv polynomial (Giles,
     fused multiply-adds emulated the same way) to the same uniforms; its
     log1p may differ from XLA's, which leaves ~1% of the draws a few ulps
@@ -67,6 +67,12 @@ def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
     """`jax.random.split`: [num, 2] new keys."""
     b0, b1 = _hash_iota(k, num)
     return torch.from_numpy(np.stack([b0, b1], axis=1).astype(np.int64))
+
+
+def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
+    """`jax.random.fold_in`: the key hashed with the count pair (0, data)."""
+    b0, b1 = threefry2x32(k, np.zeros(1, np.uint32), np.array([int(data) & 0xFFFFFFFF], np.uint32))
+    return torch.tensor([int(b0[0]), int(b1[0])], dtype=torch.int64)
 
 
 def random_bits(k: torch.Tensor, shape: Sequence[int]) -> np.ndarray:

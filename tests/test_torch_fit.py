@@ -372,6 +372,18 @@ def test_training_cli_trains_and_resumes(tmp_path, capsys):
     assert torch.isfinite(out.features["rgb"]).all()
 
 
+def test_training_cli_lbs_runs_repeat(tmp_path):
+    """`--traj lbs` draws its skinning logits from JAX's key (PRNGKey(0)),
+    not from torch's unseeded generator: two runs end equal."""
+    common = ["--synthetic", "--device", "cpu", "--traj", "lbs", "--num_iters", "3", "--i_weight", "0",
+              "--tensorboard", "0", "--max_intersections", str(MAXI), "--num_track_samples", "64"]
+    a, b = (tapp.main(common + ["--out_dir", str(tmp_path / run)]) for run in ("a", "b"))
+    assert a.step == b.step == 3 and sorted(a.scene.params) == sorted(b.scene.params)
+    assert "pos_lbs_logits" in a.scene.params
+    for k in a.scene.params:
+        assert torch.equal(a.scene.params[k], b.scene.params[k]), k
+
+
 def test_profile_and_error_resampling(clip, tmp_path):
     fcfg, tcfg = port_cfgs(4, profile_dir=str(tmp_path / "prof"), profile_start=2, profile_count=1,
                            error_resample_every=2)

@@ -271,29 +271,62 @@ def test_reduce_gaussians_matches_plain_and_is_deterministic():
     assert float(red.abs().sum()) > 0
 
 
-# around the piece width (41) and the shared-memory limits of one unpieced
-# block (48 KB without opt-in at R = 42, 227 KB at R ~ 200)
-@pytest.mark.parametrize("R", [1, 15, 41, 42, 43, 82, 83, 200, 201, 256])
+# around the staging kernel's widest row (41; 48 KB without opt-in), then
+# the wide kernel: rows of float4s (R % 4 == 0) on a half-warp up to 64 and
+# on a warp past it, rows of floats (R % 4 != 0), and rows wider than one
+# warp's pass (128 floats of float4s, 32 floats of floats)
+@pytest.mark.parametrize("R", [1, 15, 41, 42, 43, 44, 60, 61, 64, 65, 72, 82, 83, 128, 129, 200, 201, 208,
+                               256, 512])
 def test_reduce_gaussians_any_row_count(R):
-    """K4 alone on seeded rows of R columns launches and equals its plain
-    version."""
+    """K4 alone on seeded rows of R columns launches, equals its plain
+    version, and repeats bit for bit twice."""
     b = _binned(3, (16, 16), 3, False, False)[0]
     rows = torch.randn(b.order.shape[0], R, generator=torch.Generator().manual_seed(R)).cuda()
     before = rasterize_gpu.LAUNCHES["reduce_gaussians"]
     red = rasterize_gpu.reduce_gaussians(rows, b.order, b.offs, b.tiles)
     assert rasterize_gpu.LAUNCHES["reduce_gaussians"] == before + 1
     ref = rasterize_gpu.reduce_gaussians_plain(rows, b.order, b.offs, b.tiles)
+    again = [rasterize_gpu.reduce_gaussians(rows, b.order, b.offs, b.tiles) for _ in range(2)]
     torch.cuda.synchronize()
     assert red.shape == (b.offs.shape[0], R)
     assert torch.equal(red, ref) and float(red.abs().sum()) > 0
+    assert all(torch.equal(red, a) for a in again)
+
+
+@pytest.mark.parametrize("R", [15, 41, 44, 60, 61, 208])
+@pytest.mark.parametrize("saturate", [False, True])
+def test_reduce_gaussians_full_runs(R, saturate):
+    """Runs of the full 64 slots (the first and last Gaussians, one in the
+    middle, 40 in a row) among short and empty ones, on a permutation
+    that keeps the unused slots in place; saturated, the budget ends 37
+    slots into one of the 40. Equal to the plain version, twice."""
+    rng = np.random.RandomState(R)
+    N = 3000
+    tiles = rng.randint(0, 9, N)
+    tiles[rng.rand(N) < 0.2] = 0
+    tiles[[0, 1234, N - 1]] = 64
+    tiles[2000:2040] = 64
+    offs = np.cumsum(tiles) - tiles
+    total = int(tiles.sum())
+    M = int(offs[2020]) + 37 if saturate else total + 1000
+    used = min(total, M)
+    order = np.concatenate([rng.permutation(used), np.arange(used, M)])
+    args = (torch.randn(M, R, generator=torch.Generator().manual_seed(R)).cuda(), torch.from_numpy(order).cuda(),
+            torch.from_numpy(offs.astype(np.int32)).cuda(), torch.from_numpy(tiles.astype(np.int32)).cuda())
+    red = rasterize_gpu.reduce_gaussians(*args)
+    ref = rasterize_gpu.reduce_gaussians_plain(*args)
+    again = [rasterize_gpu.reduce_gaussians(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(red, ref) and all(torch.equal(red, a) for a in again)
+    assert float(red[N - 1].abs().sum()) > 0 if not saturate else not bool(red[2021:].any())
 
 
 @pytest.mark.parametrize("C,bias,saturate", [(7, False, True), (32, True, False), (32, True, True),
                                              (52, False, False), (52, True, True), (200, False, False)])
 def test_reduce_gaussians_wide_rows_and_saturated_budget(C, bias, saturate):
     """R = 8 + 32 + 1 = 41 rows (more than one 32-lane group's pass), rows
-    summed in pieces (R = 60, 61 and 208 > 41) and a budget that ends inside
-    the expansion, twice for determinism."""
+    of the wide kernel (R = 60, 61 and 208 > 41) and a budget that ends
+    inside the expansion, twice for determinism."""
     b, args, _ = _backward_inputs((16, 16), bias, C=C, saturate=saturate)
     dgrad = rasterize_gpu.blend_backward(*args)
     assert dgrad.shape[1] == 8 + C + bias

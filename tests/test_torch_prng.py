@@ -1,11 +1,11 @@
 """The port's copy of JAX's random numbers (`train/prng.py`) against
-`jax.random` on the CPU: keys, splits, uniform and randint equal bit for
-bit; normal equal in at least 98% of draws and within 4 ulps in all (XLA's
-erfinv polynomial evaluated in PyTorch, whose log1p rounds otherwise;
-measured: 99.1% equal, 3 ulps at most); choice with probabilities equal
-at the sizes the fit tests use (a 131,072-slot cumulative sum, summed in
-another order, moved 1-2 of 512 draws to a neighbouring index when
-measured)."""
+`jax.random` on the CPU: keys, splits, fold_in, uniform and randint equal
+bit for bit; normal equal in at least 98% of draws and within 4 ulps in
+all (XLA's erfinv polynomial evaluated in PyTorch, whose log1p rounds
+otherwise; measured: 99.1% equal, 3 ulps at most); choice with
+probabilities equal at the sizes the fit tests use (a 131,072-slot
+cumulative sum, summed in another order, moved 1-2 of 512 draws to a
+neighbouring index when measured)."""
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +24,15 @@ def test_key_and_split_are_jax_bits(seed):
     assert np.array_equal(np.array(jk).astype(np.int64), tk.numpy())
     for num in (2, 3, 7):
         assert np.array_equal(np.array(jax.random.split(jk, num)).astype(np.int64), prng.split(tk, num).numpy())
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fold_in_is_jax_bits(seed):
+    for data in (0, 1, 2, 77, 2**31 - 1, 2**32 - 1):
+        j = np.array(jax.random.fold_in(jax.random.PRNGKey(seed), data)).astype(np.int64)
+        assert np.array_equal(j, prng.fold_in(prng.key(seed), data).numpy()), data
+    jk, tk = subkeys(seed)
+    assert np.array_equal(np.array(jax.random.fold_in(jk, 3)).astype(np.int64), prng.fold_in(tk, 3).numpy())
 
 
 def subkeys(seed):

@@ -8,6 +8,9 @@ Tolerances: values and gradients rtol 1e-5 / atol 1e-6 unless stated
 distance cancels |q|^2 + |p|^2 - 2 q.p); kNN indices and every integer or mask
 exactly; Adam moments rtol 1e-5, params atol 1e-6 (gradients are kept
 away from 0, where Adam's first steps would follow the sign of noise).
+`create_scene`'s random draws without a generator: the default colours
+exactly, the lbs skinning logits atol 1e-8 (0.01 times `prng.normal`,
+which is within a few ulps of JAX's normal).
 """
 
 import dataclasses
@@ -382,7 +385,7 @@ def test_reset_opacity_matches():
 # ---- scene creation ---------------------------------------------------------------
 
 
-@pytest.mark.parametrize("traj", ["poly_fourier", "cubic_spline", "static"])
+@pytest.mark.parametrize("traj", ["poly_fourier", "cubic_spline", "static", "lbs"])
 def test_create_scene_matches(traj):
     rng = np.random.RandomState(12)
     n, cap, T = 90, 128, 10
@@ -397,10 +400,29 @@ def test_create_scene_matches(traj):
                           track_seq=track if traj == "cubic_spline" else None, device="cpu")
     assert sorted(ts.params) == sorted(js.params) and sorted(ts.aux) == sorted(js.aux)
     for k in js.params:
-        close(ts.params[k], js.params[k], msg=k)
+        if k == "pos_lbs_logits":   # JAX's draw from PRNGKey(0), which the port repeats
+            close(ts.params[k], js.params[k], rtol=0, atol=1e-8, msg=k)
+        else:
+            close(ts.params[k], js.params[k], msg=k)
     for k in js.aux:
         close(ts.aux[k], js.aux[k], rtol=0, atol=0, msg=k)
     assert dataclasses.asdict(ts.cfg) == dataclasses.asdict(js.cfg)
+
+
+@pytest.mark.parametrize("seed", [None, 0, 5])
+def test_create_scene_default_draws_are_jax_draws(seed):
+    """Without colours and without a generator, both packages draw the
+    colours and the lbs logits from the key (PRNGKey(0) when none is given)."""
+    pos = tinit.positive_z_random(40, rng=np.random.RandomState(4))
+    kw = dict(capacity=64, num_frames=4, traj="lbs", num_bones=6)
+    jkey, tkey = ({}, {}) if seed is None else ({"key": jax.random.PRNGKey(seed)}, {"key": tprng.key(seed)})
+    js = jgs.create_scene(jgs.SceneConfig(**kw), pos, **jkey)
+    ts = tgs.create_scene(tgs.SceneConfig(**kw), pos, device="cpu", **tkey)
+    close(ts.params["features_dc"], js.params["features_dc"], rtol=0, atol=0)
+    close(ts.params["pos_lbs_logits"], js.params["pos_lbs_logits"], rtol=0, atol=1e-8)
+    again = tgs.create_scene(tgs.SceneConfig(**kw), pos, device="cpu", **tkey)
+    for k in ts.params:
+        assert torch.equal(ts.params[k], again.params[k]), k
 
 
 def test_create_scene_draws_colours_and_lbs_logits_from_the_generator():
