@@ -66,14 +66,24 @@ and holds each against its plain PyTorch version at the flagship shapes
      (C = 7 and 52) and on tiles above the 1024 threads of a block (64x32
      at C = 7, 48x48 at C = 52; there also `splat_scene` forward and
      backward), and the 64x48 training render at C = 52 on the card against
-     the CPU.
+     the CPU;
+  the tutorials and the TAPIR converter (phase 24): `examples/
+     torch_gs_2d.py` at 256x256 with 10,000 Gaussians all at depth 1.0
+     (every tile blends ties: C = 3, R = 11), step 0's render and gradients
+     against the CPU, 500 of its 2,000 iterations (PSNR up, depth still
+     1.0), two 50-iteration fits `torch.equal` and their first losses
+     against the CPU; `examples/torch_gs_3d.py`'s 12 perspective views of
+     a 20,000-point torus (C = 4) against the CPU; K1-K4 at both
+     tutorials' instances; `scripts/torch_convert_tapir.py` on a random
+     state dict, its weights loaded and run on the card against the CPU.
 
 Every kernel check is `torch.equal` against the plain version.
 
 The launch counters are set to 0 just before each of the main paths (the
 video render, the ten train steps, the fit, each side path's steps, the DP
-steps, the slab render and the wide train steps) and read just after; the
-kernel table's `launches` are the fit's, one per kernel and step. Each phase
+steps, the slab render, the wide train steps, the gs_2d fit and the gs_3d
+orbit) and read just after; the kernel table's `launches` are the fit's,
+one per kernel and step. Each phase
 prints one line; any failure ends the run with a non-zero exit and no
 result line. The `[times]` lines and the kernel table carry each kernel's
 registers per thread, local (spill) bytes per thread and shared bytes per
@@ -81,8 +91,8 @@ block at the main path's instance (`rasterize_gpu.kernel_attributes`),
 the port's kernels' own times inside the frame and step profiles, and
 beside K2 and K4 the PyTorch calls that do part of their work (the owners
 alone, a fill of K2's outputs, the gather of K4's rows), as references.
-The kernel table's `instances` list the side paths' and phase 23's blend
-instances (K4's beside `index_add_`). The
+The kernel table's `instances` list the side paths', phase 23's and phase
+24's blend instances (K4's beside `index_add_`), and phase 24's K2. The
 line before the last is the kernel table as JSON, the last line
 `{"ok": true, "device": {...}}`. Needs one CUDA device.
 """
@@ -92,6 +102,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -161,6 +172,14 @@ WIDE_CS = (33, 52, 64, 200)      # K1, K3 and K4 on 16x16 tiles
 # K3 above 512 pixels and not of whole warps; K1 and K3 above the 1024 threads of a block (64x32, 48x48),
 # also through `splat_scene` forward and backward
 WIDE_TILES = ((7, (32, 32)), (52, (32, 32)), (7, (12, 12)), (7, (64, 32)), (52, (48, 48)))
+# phase 24, the tutorials at their defaults (examples/torch_gs_2d.py, examples/torch_gs_3d.py)
+TUT_SIZE, TUT_POINTS, TUT_LR, TUT_LOG_EVERY = 256, 10_000, 0.01, 200
+TUT_ITERS = 500         # cut from the tutorial's 2,000 to hold the phase's time (the fit is host-bound)
+TUT_MAX_INTERSECTIONS = 1 << 18
+TUT_LOSS_ITERS, TUT_LOSS_RTOL = 5, 1e-4    # the first losses of a card fit against a CPU fit
+TUT_REPEAT_ITERS = 50                      # two card fits, torch.equal
+ORBIT_POINTS, ORBIT_FRAMES, ORBIT_SIZE = 20_000, 12, 256
+ORBIT_CPU_WORKERS, ORBIT_CPU_THREADS = 4, 2   # the CPU references of the 12 views, in parallel
 
 
 def log(phase: str, msg: str) -> None:
@@ -896,6 +915,39 @@ def blend_instance(tag: str, pr, rc, cpm: float, seed: int, card: str, K: int = 
               f"{resources(attrs3)}; K4 at R = {R} {ms4:.4f} ms, plain {plain4:.3f} ms, index_add_ {lib4:.4f} ms, "
               f"bound {bound4:.4f} ms (bytes: {bytes4:.3g} B), {bound4 / ms4:.1%} of it; {resources(attrs4)} {card}")
     return rows
+
+
+def k2_instance(tag: str, pr, rc, cpm: float, card: str) -> dict:
+    """K2 at the binning of the projection `pr` under `rc`: keys and owners
+    `torch.equal` to its plain version, timed, with its bound (each
+    Gaussian's tile count read, offs, rect_min, rect_max.x and depth of
+    those with tiles, each of the M slots written). Returns
+    {"expand_intersections": [instance row]}."""
+    import torch
+
+    from splatter_a_video_tpu_torch.ops import rasterize_gpu as rg
+    from splatter_a_video_tpu_torch.ops.projection import tile_grid
+
+    N, M = pr.tiles.shape[0], rc.max_intersections
+    tiles = pr.tiles.clamp_max(rc.max_tiles_per_gaussian).contiguous()
+    offs = (torch.cumsum(tiles, 0, dtype=torch.int32) - tiles).contiguous()
+    a = (offs, tiles, pr.rect_min.contiguous(), pr.rect_max.contiguous(), pr.depth.contiguous(), M,
+         tile_grid(rc.width, rc.height, rc.block)[0])
+    keys, gid = rg.expand_intersections(*a)
+    keys_p, gid_p = rg.expand_intersections_plain(*a)
+    same = torch.equal(keys, keys_p) and torch.equal(gid, gid_p)
+    require(same, f"K2 {tag} differs from plain")
+    nint, live = int(tiles.sum()), int((tiles > 0).sum())
+    nbytes = 4 * N + live * (4 + 8 + 4 + 4) + M * (8 + 4)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    ms = cuda_ms(lambda: rg.expand_intersections(*a), cpm)
+    plain_ms = cuda_ms(lambda: rg.expand_intersections_plain(*a), cpm, PLAIN_REPS)
+    attrs = rg.kernel_attributes("expand_intersections")
+    log("K2", f"{tag} {rc.width}x{rc.height}: keys and owners torch.equal to plain: {same}; {nint} intersections "
+              f"of {M}; {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms (bytes: {nbytes:.3g} B, {live} "
+              f"Gaussians with tiles); {resources(attrs)} {card}")
+    return {"expand_intersections": [dict(instance=tag, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                                          max_abs_err=float((keys - keys_p).abs().max()), **attrs)]}
 
 
 def merge_rows(*parts):
@@ -1802,6 +1854,288 @@ def wide_phase(args, dev, card: str, cpm: float):
     return rows, launches
 
 
+def load_example(name: str):
+    """The tutorial `examples/<name>.py` of this checkout as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def quiet():
+    """Silences a tutorial's per-iteration prints (the checks print their own lines)."""
+    import contextlib
+    import io
+
+    return contextlib.redirect_stdout(io.StringIO())
+
+
+def gs_2d_check(args, card: str, cpm: float):
+    """Phase 24, gs_2d at its defaults: TUT_POINTS Gaussians at TUT_SIZE^2,
+    every one at depth 1.0, so each tile blends ties alone. Step 0's render
+    and five gradients on the card against the CPU; K1-K4 at the blend of
+    step 0 and of the end `torch.equal` to their plain versions; the fit of
+    TUT_ITERS iterations (launch counts, depth still exactly 1.0, PSNR up),
+    ms per iteration and busy share; two card fits of TUT_REPEAT_ITERS
+    `torch.equal`, their first TUT_LOSS_ITERS losses against a CPU fit.
+    Returns (kernel instances, the fit's launch counts)."""
+    import torch
+
+    from splatter_a_video_tpu_torch.ops import rasterize
+    from splatter_a_video_tpu_torch.train import optim, prng
+
+    g2 = load_example("torch_gs_2d")
+    target = g2.make_target(TUT_SIZE)
+    cfg = rasterize.RasterizeConfig(width=TUT_SIZE, height=TUT_SIZE, max_intersections=TUT_MAX_INTERSECTIONS)
+
+    def inputs(d):
+        return (g2.init_params(prng.key(args.seed), TUT_POINTS, d), torch.eye(3, 4, device=d),
+                torch.as_tensor(target, device=d))
+
+    def fit(iters, log_every, device=DEVICE):
+        with quiet():
+            return g2.fit(target, TUT_POINTS, iters, TUT_LR, seed=args.seed, log_every=log_every,
+                          max_intersections=TUT_MAX_INTERSECTIONS, device=device)
+
+    # ---- step 0: the render and the five gradients, card against CPU ----
+    (p0, extr, gt), (p0_cpu, extr_cpu, gt_cpu) = inputs(DEVICE), inputs("cpu")
+    _, img_g, grads_g = g2.loss_and_grads(p0, cfg, extr, gt)
+    _, img_c, grads_c = g2.loss_and_grads(p0_cpu, cfg, extr_cpu, gt_cpu)
+    d_img = (img_g.cpu() - img_c).abs().max().item()
+    worst = max(((grads_g[k].cpu() - grads_c[k]).abs() / (GRAD_ATOL + GRAD_RTOL * grads_c[k].abs())).max().item()
+                for k in grads_c)
+    require(d_img <= ATOL and worst <= 1.0, f"gs_2d step 0: render {d_img:.3g}, gradients {worst:.3g} of the bar")
+    with torch.no_grad():
+        pr = g2.project_2d(p0, cfg, extr)
+    depths = torch.unique(pr.depth[pr.radius > 0]).tolist()
+    require(depths == [1.0], f"gs_2d: visible depths {depths[:4]}, expected only 1.0")
+    log("tutorials", f"gs_2d step 0 at {TUT_SIZE}x{TUT_SIZE}, {TUT_POINTS} points (JAX's draws, seed {args.seed}; "
+                     f"{int((pr.radius > 0).sum())} visible, all at depth 1.0): card vs CPU render max |diff| "
+                     f"{d_img:.3g} (atol {ATOL}); 5 gradients worst |diff| / (atol {GRAD_ATOL} + rtol {GRAD_RTOL} "
+                     f"|cpu|) = {worst:.3g}")
+    rows = merge_rows(blend_instance("gs_2d step 0", pr, cfg, cpm, args.seed + 15, card, plain_reps=0),
+                      k2_instance("gs_2d step 0", pr, cfg, cpm, card))
+    del pr, grads_g, img_g
+
+    # ---- the fit at its defaults ----
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    params, img, hist = fit(TUT_ITERS, TUT_LOG_EVERY)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    renders = TUT_ITERS + len(hist) + 1    # a blend a step, a PSNR render a log line, the final image
+    want = {"blend_forward": renders, "expand_intersections": renders, "blend_backward": TUT_ITERS,
+            "reduce_gaussians": TUT_ITERS}
+    require(launches == want, f"gs_2d fit launch counts {launches}, expected {want}")
+    require(all(bool(torch.isfinite(v).all()) for v in params.values()) and bool(torch.isfinite(img).all()),
+            "gs_2d fit not finite")
+    require(bool((params["xyz"][:, 2] == 1.0).all()), "gs_2d: a depth left 1.0 during the fit")
+    require(hist[-1][2] > hist[0][2], f"gs_2d: PSNR {hist[0][2]:.3f} -> {hist[-1][2]:.3f} did not rise")
+    with torch.no_grad():
+        pr = g2.project_2d(params, cfg, extr)
+    rows = merge_rows(rows, blend_instance("gs_2d end", pr, cfg, cpm, args.seed + 16, card, plain_reps=0),
+                      k2_instance("gs_2d end", pr, cfg, cpm, card))
+    del pr
+    state, lr = optim.adam_init(params), torch.tensor(TUT_LR)
+    it = lambda: g2.step(params, state, cfg, extr, gt, lr)
+    it_ms = wall_ms(it)
+    log("tutorials", f"gs_2d fit, {TUT_ITERS} iterations (cut from the tutorial's 2,000) at lr {TUT_LR}: l1 "
+                     f"{hist[0][1]:.5f} -> {hist[-1][1]:.5f}, PSNR {hist[0][2]:.4f} (iteration 0) -> "
+                     f"{hist[-1][2]:.4f} (iteration {hist[-1][0]}); every xyz[:, 2] still exactly 1.0; {fit_s:.2f} s, "
+                     f"{fit_s * 1e3 / TUT_ITERS:.3f} ms/iteration with the {len(hist)} PSNR renders; one iteration "
+                     f"alone {it_ms:.3f} ms (wall); launches {launches} {card}")
+    log("tutorials", busy_line("gs_2d iteration", it, 5, 1, it_ms, card))
+
+    # ---- two card fits torch.equal; their first losses against the CPU ----
+    runs = [fit(TUT_REPEAT_ITERS, 1) for _ in range(2)]
+    t0 = time.perf_counter()
+    on_cpu = fit(TUT_LOSS_ITERS, 1, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    (pa, ia, ha), (pb, ib, hb) = runs
+    same = all(torch.equal(pa[k], pb[k]) for k in pa) and torch.equal(ia, ib) and ha == hb
+    require(same, "gs_2d: two card fits differ")
+    rel = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(ha, on_cpu[2]))
+    require(rel <= TUT_LOSS_RTOL, f"gs_2d: the first {TUT_LOSS_ITERS} losses card vs CPU rel {rel:.3g}")
+    log("tutorials", f"gs_2d: two card fits of {TUT_REPEAT_ITERS} iterations torch.equal (parameters, image, every "
+                     f"loss and PSNR): {same}; their first {TUT_LOSS_ITERS} losses against a CPU fit: max rel diff "
+                     f"{rel:.3g} (rtol {TUT_LOSS_RTOL}; CPU {cpu_s:.1f} s)")
+    return rows, launches
+
+
+def orbit_inputs(g3, f: int, points: int, frames: int, size: int, dev) -> dict:
+    """`render_iter`'s arguments for view f of the tutorial's orbit
+    (`torch_gs_3d.render_orbit`: the rotations of views 0..f drawn in turn)."""
+    import math
+
+    import torch
+
+    from splatter_a_video_tpu_torch.ops.quaternion import quat_normalize
+
+    pos, col = g3.make_torus(points)
+    rng = np.random.RandomState(1)
+    for _ in range(f + 1):
+        rot = rng.randn(points, 4).astype(np.float32)
+    return dict(FovX=g3.FOV, FovY=g3.FOV, height=size, width=size,
+                world_view_transform=torch.from_numpy(g3.orbit_world_view(2 * math.pi * f / frames)).to(dev),
+                full_proj_transform=None, camera_center=torch.zeros(3, device=dev),
+                position=torch.from_numpy(pos).to(dev), opacity=torch.full((points,), 0.8, device=dev),
+                scaling=torch.full((points, 3), 0.02, device=dev),
+                rotation=quat_normalize(torch.from_numpy(rot).to(dev)),
+                shs=torch.from_numpy(g3.colors_to_shs(col)).to(dev))
+
+
+def orbit_views_on_cpu(job):
+    """(rgb, radii) as numpy of the orbit views `job[0]` rendered on the CPU,
+    in a worker process of `gs_3d_check`'s pool; job = (views, points,
+    frames, size)."""
+    import torch
+
+    from splatter_a_video_tpu_torch.models import legacy_render
+
+    views, points, frames, size = job
+    torch.set_num_threads(ORBIT_CPU_THREADS)
+    g3 = load_example("torch_gs_3d")
+    render = legacy_render.GaussianSplattingRender()
+    out = []
+    with torch.no_grad():
+        for f in views:
+            o = render.render_iter(**orbit_inputs(g3, f, points, frames, size, "cpu"))
+            out.append((o["rgb"].numpy(), o["radii"].numpy()))
+    return out
+
+
+def gs_3d_check(args, dev, card: str, cpm: float):
+    """Phase 24, gs_3d at its defaults: ORBIT_FRAMES views of an
+    ORBIT_POINTS torus at ORBIT_SIZE^2 through `render_iter` (perspective,
+    rgb and depth: C = 4), each frame against the CPU (rgb atol ATOL, radii
+    equal; the CPU frames in ORBIT_CPU_WORKERS processes), K1 and K2 on the
+    first view `torch.equal` to their plain versions, and the tutorial's own
+    asserts. Returns (kernel instances, the orbit's launch counts)."""
+    import multiprocessing
+
+    import torch
+
+    from splatter_a_video_tpu_torch.ops import rasterize
+
+    P, F, S = ORBIT_POINTS, ORBIT_FRAMES, ORBIT_SIZE
+    g3 = load_example("torch_gs_3d")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = g3.render_orbit(P, F, S, DEVICE)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3 / F
+    launches = read_launches()
+    want = {"blend_forward": F, "expand_intersections": F, "blend_backward": 0, "reduce_gaussians": 0}
+    require(launches == want, f"gs_3d launch counts {launches}, expected {want}")
+    t0 = time.perf_counter()
+    jobs = [(list(range(F))[w::ORBIT_CPU_WORKERS], P, F, S) for w in range(ORBIT_CPU_WORKERS)]
+    with multiprocessing.get_context("spawn").Pool(ORBIT_CPU_WORKERS) as pool:
+        parts = pool.map(orbit_views_on_cpu, jobs)
+    on_cpu = {f: r for (views, *_), part in zip(jobs, parts) for f, r in zip(views, part)}
+    cpu_s = time.perf_counter() - t0
+    err = max(np.abs(outs[f]["rgb"].cpu().numpy() - on_cpu[f][0]).max() for f in range(F))
+    radii = all(np.array_equal(outs[f]["radii"].cpu().numpy(), on_cpu[f][1]) for f in range(F))
+    require(err <= ATOL and radii, f"gs_3d card vs CPU: rgb {err:.3g}, radii equal {radii}")
+    visible = [int(o["visibility"].sum()) for o in outs]
+    with torch.no_grad():
+        kw = orbit_inputs(g3, 0, P, F, S, dev)
+        rc = rasterize.RasterizeConfig(width=S, height=S, ortho=False, sh_degree=0)
+        f = S / (2.0 * np.tan(g3.FOV / 2.0))
+        intr = torch.tensor([f, f, S / 2.0, S / 2.0], dtype=torch.float32, device=dev)
+        pr = rasterize.project_gaussians(kw["position"], kw["scaling"], kw["rotation"], kw["opacity"], kw["shs"],
+                                         kw["world_view_transform"].T[:3, :4], rc, intr, None, 1.0, False)
+        require(torch.equal(rasterize.rasterize(*pr, rc).features["rgb"], outs[0]["rgb"]),
+                "gs_3d: the first view's projection does not give render_iter's frame")
+        rows = merge_rows(blend_instance("gs_3d view 0", pr, rc, cpm, args.seed + 17, card, backward=False,
+                                         plain_reps=0),
+                          k2_instance("gs_3d view 0", pr, rc, cpm, card))
+    del pr, outs
+    with quiet():
+        g3.main(["--points", str(P), "--frames", str(F), "--size", str(S), "--out", "", "--device", DEVICE])
+    log("tutorials", f"gs_3d: {F} orbit views of a {P}-point torus at {S}x{S} (render_iter, perspective, C = 4), "
+                     f"visible {min(visible)}-{max(visible)}; card vs CPU rgb max |diff| {err:.3g} (atol {ATOL}), "
+                     f"radii equal in every view (CPU {cpu_s:.1f} s in {ORBIT_CPU_WORKERS} processes of "
+                     f"{ORBIT_CPU_THREADS} threads); {frame_ms:.3f} ms/frame (wall, with the host's inputs); launches "
+                     f"{launches}; the tutorial's two asserts pass {card}")
+    return rows, launches
+
+
+def converter_check(args, card: str) -> None:
+    """Phase 24: `scripts/torch_convert_tapir.py` on this machine, without
+    JAX: a random TAPIR state dict in the reference's layout (the default
+    widths), converted in a subprocess, loaded through `nets.tapir.get_model`
+    with SPLAT_TAPIR_WEIGHTS set, and one chunk of queries over
+    TAPIR_CHECK_FRAMES frames on the card against the CPU at phase 21's
+    bars."""
+    import tempfile
+
+    import torch
+
+    from splatter_a_video_tpu_torch.nets import tapir
+
+    tcfg = tapir.TapirConfig()
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "torch_convert_tapir.py")
+    saved = os.environ.get("SPLAT_TAPIR_WEIGHTS")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, npz = os.path.join(tmp, "tapir.pt"), os.path.join(tmp, "tapir.npz")
+        sd = tapir.random_state_dict(tcfg, NETS_SEED)
+        torch.save(sd, ckpt)
+        t0 = time.perf_counter()
+        done = subprocess.run([sys.executable, script, "--ckpt", ckpt, "--out", npz], capture_output=True, text=True)
+        conv_s = time.perf_counter() - t0
+        require(done.returncode == 0, f"torch_convert_tapir.py failed: {done.stderr[-2000:]}")
+        os.environ["SPLAT_TAPIR_WEIGHTS"] = npz
+        try:
+            tm, tm_cpu = (tapir.get_model(tcfg, device=d) for d in (DEVICE, "cpu"))
+        finally:
+            if saved is None:
+                os.environ.pop("SPLAT_TAPIR_WEIGHTS")
+            else:
+                os.environ["SPLAT_TAPIR_WEIGHTS"] = saved
+    require(tm is not None and tm.pretrained and tm_cpu is not None, "get_model did not load the converted weights")
+    res = tcfg.initial_resolution
+    yy, xx = np.mgrid[0:res[0], 0:res[1]] / np.array(res, np.float64)[:, None, None]
+    video = np.stack([np.clip(0.5 + 0.4 * np.sin(2 * np.pi * (3 * (xx + 0.02 * t) + 2 * yy)[..., None]
+                                               + np.array([0.0, 2.0, 4.0])), 0, 1)
+                      for t in range(TAPIR_CHECK_FRAMES)])
+    video = (video * 255).astype(np.uint8)
+    rng = np.random.RandomState(args.seed + 18)
+    qp = np.stack([rng.randint(0, TAPIR_CHECK_FRAMES, TAPIR_CHUNK), rng.uniform(0, res[0] - 1, TAPIR_CHUNK),
+                   rng.uniform(0, res[1] - 1, TAPIR_CHUNK)], 1).astype(np.float32)
+    g = tapir.track_points(tm, video, qp, chunk=TAPIR_CHUNK)
+    c = tapir.track_points(tm_cpu, video, qp, chunk=TAPIR_CHUNK)
+    errs = {k: float(np.abs(g[k] - c[k]).max()) for k in c}
+    require(all(np.isfinite(v).all() for v in g.values()), "converted TAPIR on the card: not finite")
+    require(all(np.allclose(g[k], c[k], atol=TAPIR_ATOL, rtol=TAPIR_RTOL) for k in c),
+            f"converted TAPIR card vs CPU: {errs}")
+    log("tutorials", f"scripts/torch_convert_tapir.py on a random {len(sd)}-tensor TAPIR state dict (reference "
+                     f"layout, default widths, seed {NETS_SEED}) in {conv_s:.1f} s, loaded by nets.tapir.get_model "
+                     f"through SPLAT_TAPIR_WEIGHTS; {TAPIR_CHECK_FRAMES} frames at {res[0]}x{res[1]}, "
+                     f"{TAPIR_CHUNK} queries, card vs CPU max |diff| "
+                     + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+                     + f" (bars atol {TAPIR_ATOL}, rtol {TAPIR_RTOL}); scripts/torch_convert_depth_anything.py is "
+                       f"not run here: its test checkpoint comes from transformers, which this machine lacks (the "
+                       f"CPU tests hold it) {card}")
+
+
+def tutorials_phase(args, dev, card: str, cpm: float):
+    """Phase 24: the tutorials and the TAPIR converter (`gs_2d_check`,
+    `gs_3d_check`, `converter_check`). Returns (kernel instances, the gs_2d
+    fit's launch counts, the gs_3d orbit's)."""
+    t0 = time.perf_counter()
+    rows2, fit_launches = gs_2d_check(args, card, cpm)
+    rows3, orbit_launches = gs_3d_check(args, dev, card, cpm)
+    converter_check(args, card)
+    log("tutorials", f"phase 24 in {time.perf_counter() - t0:.1f} s")
+    return merge_rows(rows2, rows3), fit_launches, orbit_launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2264,6 +2598,10 @@ def main() -> int:
     wide_rows, wide_launches = wide_phase(args, dev, card, cpm)
     instances = merge_rows(instances, wide_rows)
 
+    # ---- 24. the tutorials at their defaults, the TAPIR converter -------------
+    tut_rows, tut_fit_launches, tut_orbit_launches = tutorials_phase(args, dev, card, cpm)
+    instances = merge_rows(instances, tut_rows)
+
     kernels = [
         {"name": "blend_forward", "route": "cuda",
          "source": "splatter_a_video_tpu_torch/csrc/blend_forward.cu",
@@ -2298,11 +2636,13 @@ def main() -> int:
         # and the ten train steps keep their own counts beside it
         k["render_launches"], k["step_launches"] = launches[k["name"]], train_launches[k["name"]]
         k["launches"] = fit_launches[k["name"]]
-        # the blend instances of phases 15, 18 and 23, each held torch.equal
+        # the blend instances of phases 15, 18, 23 and 24 (K2: 24), each held torch.equal
         k["instances"] = instances.get(k["name"], [])
         # the DP steps', the depth slabs' and the wide train steps' launches (phases 19, 20, 23)
         k["dp_launches"], k["shard_launches"] = dp_launches[k["name"]], shard_launches[k["name"]]
         k["wide_launches"] = wide_launches[k["name"]]
+        # the gs_2d fit's and the gs_3d orbit's launches (phase 24)
+        k["gs_2d_launches"], k["gs_3d_launches"] = tut_fit_launches[k["name"]], tut_orbit_launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

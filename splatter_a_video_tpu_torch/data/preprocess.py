@@ -179,7 +179,7 @@ def compute_monodepth(img_dir: str, out_dir: str, model: str = "depth-anything-v
         raise NotImplementedError(
             "Depth-Anything weights are not available in this offline "
             "environment; convert a checkpoint with "
-            "nets.depth_anything.params_from_torch/save_params, or generate "
+            "scripts/torch_convert_depth_anything.py, or generate "
             "the layout hermetically with data/synthetic.py."
         )
     import imageio.v2 as iio
@@ -226,7 +226,7 @@ def compute_tracks(
     if net is None:
         raise NotImplementedError(
             "BootsTAPIR checkpoint not available offline; convert one with "
-            "scripts/convert_tapir.py, or use data/synthetic.py which emits "
+            "scripts/torch_convert_tapir.py, or use data/synthetic.py which emits "
             "the same {q}_{t}.npy layout hermetically."
         )
     import imageio.v2 as iio

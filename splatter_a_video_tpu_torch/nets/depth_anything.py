@@ -12,9 +12,11 @@ at the public functions. Params are the JAX package's dict (convs HWIO,
 the reassemble deconvs [k, k, out, in]).
 
 Weights: the converted `.npz` at `$SPLAT_DEPTH_ANYTHING_WEIGHTS` or
-`splatter_a_video_tpu_torch/weights/depth_anything.npz` (`save_params`
-writes it; the JAX package reads the same file); without one `get_model`
-returns None and the preprocessing stage stays gated.
+`splatter_a_video_tpu_torch/weights/depth_anything.npz`
+(`scripts/torch_convert_depth_anything.py` writes it from a local
+checkpoint through `save_params`; the JAX package reads the same file);
+without one `get_model` returns None and the preprocessing stage stays
+gated.
 """
 
 from __future__ import annotations

@@ -14,8 +14,10 @@ package's dict (convs HWIO, linears [in, out], depthwise kernels [k, 1,
 out]); feature grids are channels last.
 
 Weights: the converted `.npz` at `$SPLAT_TAPIR_WEIGHTS` or
-`splatter_a_video_tpu_torch/weights/tapir.npz`; without one `get_model`
-returns None and `data/preprocess.compute_tracks` stays gated.
+`splatter_a_video_tpu_torch/weights/tapir.npz` (`scripts/torch_convert_tapir.py`
+writes it from the torch checkpoint; the JAX package reads the same file);
+without one `get_model` returns None and `data/preprocess.compute_tracks`
+stays gated.
 """
 
 from __future__ import annotations
@@ -126,6 +128,62 @@ def random_params(cfg: TapirConfig, seed: int = 0) -> Dict[str, np.ndarray]:
     p["mx.ln_w"] = ones(H)
     p["mx.out_w"], p["mx.out_b"] = lin(H, cfg.mixer_out_dim), zeros(cfg.mixer_out_dim)
     return p
+
+
+def random_state_dict(cfg: TapirConfig, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """A torch TAPIR state dict in the reference's `tapnet_torch` names and
+    layouts (what `params_from_torch` reads) of random weights scaled by
+    their fan-in: a stand-in checkpoint for the converter where the
+    published one cannot be had."""
+    rng = np.random.RandomState(seed)
+
+    def w(*shape):  # [out, in, ...]
+        return (rng.randn(*shape) / math.sqrt(int(np.prod(shape[1:])))).astype(np.float32)
+
+    def b(n):
+        return (0.1 * rng.randn(n)).astype(np.float32)
+
+    def scale(n):
+        return (1.0 + 0.1 * rng.randn(n)).astype(np.float32)
+
+    sd = {"resnet_torch.initial_conv.weight": w(cfg.channels_per_group[0], 3, 7, 7)}
+    cin = cfg.channels_per_group[0]
+    for g, (nb, cout) in enumerate(zip(cfg.blocks_per_group, cfg.channels_per_group)):
+        for i in range(nb):
+            src = f"resnet_torch.block_groups.{g}.blocks.{i}."
+            c_in_b = cin if i == 0 else cout
+            sd.update({src + "bn_0.weight": scale(c_in_b), src + "bn_0.bias": b(c_in_b),
+                       src + "conv_0.weight": w(cout, c_in_b, 3, 3), src + "bn_1.weight": scale(cout),
+                       src + "bn_1.bias": b(cout), src + "conv_1.weight": w(cout, cout, 3, 3)})
+            if i == 0:
+                sd[src + "proj_conv.weight"] = w(cout, c_in_b, 1, 1)
+        cin = cout
+    C = cfg.lowres_dim
+    for i in range(cfg.extra_convs):
+        src = f"extra_convs.blocks.{i}."
+        sd.update({src + "layer_norm.weight": scale(C), src + "layer_norm.bias": b(C),
+                   src + "conv.weight": w(4 * C, C, 3, 3), src + "conv.bias": b(4 * C),
+                   src + "conv_1.weight": w(C, 4 * C, 3, 3), src + "conv_1.bias": b(C)})
+    cv = "torch_cost_volume_track_mods."
+    sd.update({cv + "hid1.weight": w(16, 1, 3, 3), cv + "hid1.bias": b(16), cv + "hid2.weight": w(1, 16, 3, 3),
+               cv + "hid2.bias": b(1), cv + "hid3.weight": w(32, 16, 3, 3), cv + "hid3.bias": b(32),
+               cv + "hid4.weight": w(16, 32), cv + "hid4.bias": b(16), cv + "occ_out.weight": w(2, 16),
+               cv + "occ_out.bias": b(2)})
+    H = cfg.mixer_hidden_dim
+    mx = "torch_pips_mixer."
+    sd.update({mx + "linear.weight": w(H, cfg.mixer_in_dim), mx + "linear.bias": b(H),
+               mx + "layer_norm.weight": scale(H), mx + "linear_1.weight": w(cfg.mixer_out_dim, H),
+               mx + "linear_1.bias": b(cfg.mixer_out_dim)})
+    for i in range(cfg.num_mixer_blocks):
+        src = mx + f"blocks.{i}."
+        sd.update({src + "layer_norm.weight": scale(H), src + "mlp1_up.weight": w(4 * H, 1, 3),
+                   src + "mlp1_up.bias": b(4 * H), src + "mlp1_up_1.weight": w(4 * H, 1, 3),
+                   src + "mlp1_up_1.bias": b(4 * H), src + "layer_norm_1.weight": scale(H),
+                   src + "conv_channels_mixer.mlp2_up.weight": w(4 * H, H),
+                   src + "conv_channels_mixer.mlp2_up.bias": b(4 * H),
+                   src + "conv_channels_mixer.mlp2_down.weight": w(H, 4 * H),
+                   src + "conv_channels_mixer.mlp2_down.bias": b(H)})
+    return {k: torch.from_numpy(v) for k, v in sd.items()}
 
 
 def params_from_torch(sd, strict: bool = False) -> Dict[str, np.ndarray]:

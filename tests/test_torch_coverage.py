@@ -3,6 +3,12 @@ JAX package (and every member of a class that both packages define) has a
 counterpart of the same name in the port module at the same relative path,
 or an entry in the tables below with the port's counterpart and the reason
 it differs. Both packages are read with `ast`; neither is imported.
+
+The entry points outside the package are held the same way: each tutorial
+`examples/<name>.py` has `examples/torch_<name>.py` and each converter
+`scripts/convert_<name>.py` has `scripts/torch_convert_<name>.py`, with
+every top-level name of the JAX file, importing nothing of JAX or of the
+JAX package.
 """
 
 import ast
@@ -13,6 +19,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 JAX_PKG = ROOT / "splatter_a_video_tpu"
 PORT_PKG = ROOT / "splatter_a_video_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "flax", "splatter_a_video_tpu")
 
 # JAX module -> port module, where the paths differ
 RENAMED = {"ops/rasterize_tpu.py": "ops/rasterize_gpu.py"}
@@ -180,6 +187,30 @@ def test_table_entries_are_needed():
     assert not stale, f"entries for names the port has, or the JAX package lacks: {stale}"
     assert all(c and r for c, r in COUNTERPARTS.values())
     assert all((JAX_PKG / rel).exists() for rel in NOT_PORTED_MODULES)
+
+
+JAX_ENTRY_POINTS = sorted(
+    [p.relative_to(ROOT).as_posix() for p in (ROOT / "examples").glob("*.py") if not p.name.startswith("torch_")]
+    + [p.relative_to(ROOT).as_posix() for p in (ROOT / "scripts").glob("convert_*.py")])
+
+def imported_roots(path: pathlib.Path):
+    """The top-level package of every absolute import of a file."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("rel", JAX_ENTRY_POINTS)
+def test_entry_point_has_port_counterpart(rel):
+    jax_path = ROOT / rel
+    port = jax_path.with_name("torch_" + jax_path.name)
+    assert port.exists(), f"no port entry point for {rel}: expected {port.relative_to(ROOT)}"
+    missing = sorted(module_names(jax_path) - module_names(port))
+    assert not missing, f"{port.relative_to(ROOT)} lacks {missing} of {rel}"
+    bad = sorted(set(imported_roots(port)) & set(FORBIDDEN))
+    assert not bad, f"{port.relative_to(ROOT)} imports {bad}"
 
 
 @pytest.mark.parametrize("flag", ["--refine_camera", "--distributed"])

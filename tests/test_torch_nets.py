@@ -20,6 +20,8 @@ arrays) and inputs:
     strict mode names unconsumed keys.
 """
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -136,7 +138,8 @@ def test_depth_anything_npz_serves_both_packages(da_params, tmp_path, monkeypatc
 
 
 @pytest.fixture(scope="module")
-def hf_state_dict():
+def hf_model():
+    """A tiny `transformers` Depth-Anything with seeded random weights."""
     transformers = pytest.importorskip("transformers")
     backbone = transformers.Dinov2Config(
         image_size=28, patch_size=14, hidden_size=32, num_hidden_layers=4, num_attention_heads=2,
@@ -146,7 +149,12 @@ def hf_state_dict():
                                            neck_hidden_sizes=[8, 16, 24, 32], fusion_hidden_size=16,
                                            head_hidden_size=8, patch_size=14)
     torch.manual_seed(0)
-    return transformers.DepthAnythingForDepthEstimation(cfg).eval().state_dict()
+    return transformers.DepthAnythingForDepthEstimation(cfg).eval()
+
+
+@pytest.fixture(scope="module")
+def hf_state_dict(hf_model):
+    return hf_model.state_dict()
 
 
 def test_depth_anything_params_from_torch_match_jax(hf_state_dict):
@@ -273,50 +281,9 @@ def test_track_points_pads_and_drops_the_pad(tapir):
         np.testing.assert_allclose(out[k], whole[k].numpy(), atol=1e-4, rtol=1e-4, err_msg=k)
 
 
-def _tapir_state_dict(cfg, seed=0):
-    """A torch TAPIR state dict (the reference's names and layouts) of
-    random arrays."""
-    rng = np.random.RandomState(seed)
-    r = lambda *s: rng.randn(*s).astype(np.float32)
-    sd = {"resnet_torch.initial_conv.weight": r(64, 3, 7, 7)}
-    cin = 64
-    for g, (nb, cout) in enumerate(zip(cfg.blocks_per_group, cfg.channels_per_group)):
-        for b in range(nb):
-            src = f"resnet_torch.block_groups.{g}.blocks.{b}."
-            c_in_b = cin if b == 0 else cout
-            sd.update({src + "bn_0.weight": r(c_in_b), src + "bn_0.bias": r(c_in_b), src + "conv_0.weight":
-                       r(cout, c_in_b, 3, 3), src + "bn_1.weight": r(cout), src + "bn_1.bias": r(cout),
-                       src + "conv_1.weight": r(cout, cout, 3, 3)})
-            if b == 0:
-                sd[src + "proj_conv.weight"] = r(cout, c_in_b, 1, 1)
-        cin = cout
-    for i in range(2):
-        src = f"extra_convs.blocks.{i}."
-        sd.update({src + "layer_norm.weight": r(256), src + "layer_norm.bias": r(256), src + "conv.weight":
-                   r(1024, 256, 3, 3), src + "conv.bias": r(1024), src + "conv_1.weight": r(256, 1024, 3, 3),
-                   src + "conv_1.bias": r(256)})
-    cv = "torch_cost_volume_track_mods."
-    sd.update({cv + "hid1.weight": r(16, 1, 3, 3), cv + "hid1.bias": r(16), cv + "hid2.weight": r(1, 16, 3, 3),
-               cv + "hid2.bias": r(1), cv + "hid3.weight": r(32, 16, 3, 3), cv + "hid3.bias": r(32),
-               cv + "hid4.weight": r(16, 32), cv + "hid4.bias": r(16), cv + "occ_out.weight": r(2, 16),
-               cv + "occ_out.bias": r(2)})
-    mx = "torch_pips_mixer."
-    sd.update({mx + "linear.weight": r(512, 535), mx + "linear.bias": r(512), mx + "layer_norm.weight": r(512),
-               mx + "linear_1.weight": r(388, 512), mx + "linear_1.bias": r(388)})
-    for i in range(2):
-        src = mx + f"blocks.{i}."
-        sd.update({src + "layer_norm.weight": r(512), src + "mlp1_up.weight": r(2048, 1, 3),
-                   src + "mlp1_up.bias": r(2048), src + "mlp1_up_1.weight": r(2048, 1, 3),
-                   src + "mlp1_up_1.bias": r(2048), src + "layer_norm_1.weight": r(512),
-                   src + "conv_channels_mixer.mlp2_up.weight": r(2048, 512),
-                   src + "conv_channels_mixer.mlp2_up.bias": r(2048),
-                   src + "conv_channels_mixer.mlp2_down.weight": r(512, 2048),
-                   src + "conv_channels_mixer.mlp2_down.bias": r(512)})
-    return {k: torch.from_numpy(v) for k, v in sd.items()}
-
-
 def test_tapir_params_from_torch_match_jax(tapir):
-    sd = _tapir_state_dict(tapir[1])
+    # a random state dict in the reference's layout, 2 ExtraConvs and 2 mixer blocks to keep it small
+    sd = ttapir.random_state_dict(dataclasses.replace(tapir[1], extra_convs=2, num_mixer_blocks=2))
     ref = jtapir.params_from_torch({k: v.numpy() for k, v in sd.items()}, strict=True)
     got = ttapir.params_from_torch(sd, strict=True)
     assert got.keys() == ref.keys()
