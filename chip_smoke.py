@@ -76,13 +76,24 @@ and holds each against its plain PyTorch version at the flagship shapes
      a 20,000-point torus (C = 4) against the CPU; K1-K4 at both
      tutorials' instances; `scripts/torch_convert_tapir.py` on a random
      state dict, its weights loaded and run on the card against the CPU.
+  the production harness (phase 25): `scripts/torch_e2e_480p.py` in the
+     flagship's environment (textured clip, growth budget 0.05, lr horizon
+     8000, track_grid 2, 100,000 points in 131,072 slots, budget 1 << 20),
+     cut to 800 of 20,000 steps so that the production schedule's first
+     density events fire at their production steps; its fit and evaluation
+     (finite, unsaturated, the JAX script's record keys, PSNR above the
+     scene step 1 starts from, the schedule's event count); K1-K4 on the
+     fitted scene's frame 0; then `scripts/torch_capability_480p.py` on
+     the saved scene at its full sizes and step counts, every section's
+     numbers finite. Both write into a temporary directory.
 
 Every kernel check is `torch.equal` against the plain version.
 
 The launch counters are set to 0 just before each of the main paths (the
 video render, the ten train steps, the fit, each side path's steps, the DP
-steps, the slab render, the wide train steps, the gs_2d fit and the gs_3d
-orbit) and read just after; the kernel table's `launches` are the fit's,
+steps, the slab render, the wide train steps, the gs_2d fit, the gs_3d
+orbit, the production harness and the capability harness) and read just
+after; the kernel table's `launches` are the fit's,
 one per kernel and step. Each phase
 prints one line; any failure ends the run with a non-zero exit and no
 result line. The `[times]` lines and the kernel table carry each kernel's
@@ -91,8 +102,9 @@ block at the main path's instance (`rasterize_gpu.kernel_attributes`),
 the port's kernels' own times inside the frame and step profiles, and
 beside K2 and K4 the PyTorch calls that do part of their work (the owners
 alone, a fill of K2's outputs, the gather of K4's rows), as references.
-The kernel table's `instances` list the side paths', phase 23's and phase
-24's blend instances (K4's beside `index_add_`), and phase 24's K2. The
+The kernel table's `instances` list the side paths', phase 23's, phase
+24's and phase 25's blend instances (K4's beside `index_add_`), and phase
+24's and 25's K2. The
 line before the last is the kernel table as JSON, the last line
 `{"ok": true, "device": {...}}`. Needs one CUDA device.
 """
@@ -180,6 +192,13 @@ TUT_LOSS_ITERS, TUT_LOSS_RTOL = 5, 1e-4    # the first losses of a card fit agai
 TUT_REPEAT_ITERS = 50                      # two card fits, torch.equal
 ORBIT_POINTS, ORBIT_FRAMES, ORBIT_SIZE = 20_000, 12, 256
 ORBIT_CPU_WORKERS, ORBIT_CPU_THREADS = 4, 2   # the CPU references of the 12 views, in parallel
+# phase 25, the production harness (scripts/torch_e2e_480p.py, scripts/torch_capability_480p.py) in the
+# flagship's environment (the recipe of commit c0f714e), cut in steps only
+E2E_ENV = {"E480_TEXTURE": "1", "E480_GROWTH_FRAC": "0.05", "E480_LR_STEPS": "8000", "E480_STEPS": "800"}
+E2E_CUTS = ("800 of 20,000 steps: the production schedule's first density events fire at their production steps "
+            "(600, 700, 800); the opacity reset (3001), the saturation latch and the lr horizon (8000) lie beyond")
+E2E_EVENTS = 3          # density events in 800 steps of the production schedule (start 500, interval 100)
+CAP_SIZES = None        # the capability harness at its full sizes and step counts (torch_capability_480p.FULL)
 
 
 def log(phase: str, msg: str) -> None:
@@ -1854,11 +1873,12 @@ def wide_phase(args, dev, card: str, cpm: float):
     return rows, launches
 
 
-def load_example(name: str):
-    """The tutorial `examples/<name>.py` of this checkout as a module."""
+def load_example(name: str, folder: str = "examples"):
+    """The tutorial `examples/<name>.py` (or `<folder>/<name>.py`) of this
+    checkout as a module."""
     import importlib.util
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", f"{name}.py")
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), folder, f"{name}.py")
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -2134,6 +2154,143 @@ def tutorials_phase(args, dev, card: str, cpm: float):
     converter_check(args, card)
     log("tutorials", f"phase 24 in {time.perf_counter() - t0:.1f} s")
     return merge_rows(rows2, rows3), fit_launches, orbit_launches
+
+
+def jax_record_keys() -> list:
+    """The keys of the record `scripts/e2e_480p.py` builds (its module-level
+    `out = {...}`), read with ast: the JAX script is not imported."""
+    import ast
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "e2e_480p.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in tree.body:
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                and any(isinstance(t, ast.Name) and t.id == "out" for t in node.targets)):
+            return [k.value for k in node.value.keys]
+    raise RuntimeError(f"no record dict in {path}")
+
+
+def e2e_phase(args, dev, card: str, cpm: float):
+    """Phase 25: the production harness. `scripts/torch_e2e_480p.py` fits
+    the flagship clip (E2E_ENV, cut by E2E_CUTS) and evaluates it through
+    its own entry points; K1-K4 on the fitted scene's frame 0 (the training
+    blend, C = 7, and the eval render, C = 4) `torch.equal` to their plain
+    versions; then `scripts/torch_capability_480p.py` on the scene the fit
+    saved. Outputs go to a temporary directory, never into the checkout.
+    Returns (kernel instances, the harness's launches, the capability's)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from splatter_a_video_tpu_torch import inference
+    from splatter_a_video_tpu_torch.eval import metrics
+    from splatter_a_video_tpu_torch.models import camera
+    from splatter_a_video_tpu_torch.ops import rasterize
+    from splatter_a_video_tpu_torch.train import hooks, trainer
+
+    t_phase = time.perf_counter()
+    e2e, cap = load_example("torch_e2e_480p", "scripts"), load_example("torch_capability_480p", "scripts")
+    s = e2e.read_env(E2E_ENV)
+    fcfg, tcfg = e2e.fit_configs(s)
+    events = [st for st in range(1, s.steps + 1) if trainer.should_densify(tcfg, st)]
+    require(len(events) == E2E_EVENTS, f"the schedule puts {events} in {s.steps} steps")
+
+    class FirstScene(hooks.Hook):
+        """The scene step 1 starts from."""
+
+        def before_train(self, ctx):
+            sc = ctx.state.scene
+            self.scene = dataclasses.replace(sc, params={k: v.detach().clone() for k, v in sc.params.items()},
+                                             aux={k: v.clone() for k, v in sc.aux.items()})
+
+    first = FirstScene()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            record, state, hist, clip = e2e.run(s, device=DEVICE, hooks=[first], write=True, root=tmp)
+        torch.cuda.synchronize()
+        e2e_s = time.perf_counter() - t0
+        launches = read_launches()
+        for line in out.getvalue().splitlines():
+            if not line.startswith(("step ", "{")):
+                log("e2e", line)
+        T, sub = s.frames, len(range(0, s.frames, max(s.frames // 6, 1)))
+        renders = s.steps + T + sub + 2 * T   # the steps, render_video, the audit, the tracking eval (2 a frame)
+        want = {"blend_forward": renders, "expand_intersections": renders, "blend_backward": s.steps,
+                "reduce_gaussians": s.steps}
+        require(launches == want, f"harness launch counts {launches}, expected {want}")
+        for m in hist:
+            vals = [v for v in m.values() if isinstance(v, (int, float))]
+            require(all(np.isfinite(v) for v in vals), f"step {m['step']}: metrics not finite {m}")
+        require(not record["eval_num_intersections"]["overflow"], f"eval overflow {record['eval_num_intersections']}")
+        require(list(record) == jax_record_keys(), f"record keys {list(record)} != {jax_record_keys()}")
+        cam = camera.canonical_camera(s.width, s.height)
+        rcfg = rasterize.RasterizeConfig(width=s.width, height=s.height, max_intersections=s.maxi)
+        res0 = inference.render_video(first.scene, cam, rcfg, list(range(T)), device=DEVICE)
+        psnr0 = float(np.mean([metrics.psnr(res0["rgb"][t], clip.frames[t]) for t in range(T)]))
+        del first.scene, res0
+        require(record["recon"]["psnr"] > psnr0, f"recon PSNR {record['recon']['psnr']} <= {psnr0:.2f} at step 1")
+        dt = record["densify_totals"] or {}
+        require(dt.get("events", 0) == len(events) and "stopped_at_step" not in dt, f"density totals {dt}")
+        timing = record["timing"]
+        log("e2e", f"torch_e2e_480p with {E2E_ENV}: {s.width}x{s.height}, {T} frames, track_grid {s.grid}, "
+                   f"{record['scale']['init_points']} points in {record['scale']['capacity']} slots, budget "
+                   f"{s.maxi}; cuts: {E2E_CUTS}; {e2e_s:.1f} s: clip {timing['clip_s']} s, setup "
+                   f"{timing['setup_s']} s (lifting {timing['lift_s']}), steady {timing['steady_ms']} ms/step, "
+                   f"evaluation {timing['eval']}, host peak RSS {timing['host_peak_rss_gib']} GiB; launches "
+                   f"{launches} {card}")
+        log("e2e", f"recon PSNR {record['recon']['psnr']} (the scene step 1 starts from: {psnr0:.2f}), SSIM "
+                   f"{record['recon']['ssim']}, LPIPS {record['recon']['lpips_fallback']} (pretrained "
+                   f"{record['recon']['lpips_is_pretrained']}); AJ {record['tapvid']['average_jaccard']}, OA "
+                   f"{record['tapvid']['occlusion_accuracy']}; alive {record['scale']['init_points']} -> "
+                   f"{record['final_alive']}, density totals {dt}; eval intersections "
+                   f"{record['eval_num_intersections']}; {len(hist)} logged steps finite; record keys == "
+                   f"scripts/e2e_480p.py's")
+
+        # K1-K4 on the fitted scene's frame 0: the first blend after production-schedule density events
+        scene = state.scene
+        extr = torch.as_tensor(cam.extrinsic, device=dev)
+        with torch.no_grad():
+            rc = tcfg.raster_cfg()
+            pr = trainer.project_for_training(trainer.scene_render_inputs(scene, 0), extr, rc,
+                                              {"track_gs": scene.get_position(1)}, True, 0.0, tcfg.depth_bg)
+            rows = blend_instance("e2e training frame 0", pr, rc, cpm, args.seed + 25, card)
+            del pr
+            inp, _ = inference._scene_inputs(scene, 0.0, ())
+            pe = rasterize.project_gaussians(inp["position"], inp["scaling"], inp["rotation"], inp["opacity"],
+                                             inp["shs"], extr, rcfg)
+            rows = merge_rows(rows, blend_instance("e2e eval frame 0", pe, rcfg, cpm, args.seed + 25, card,
+                                                   backward=False),
+                              k2_instance("e2e eval frame 0", pe, rcfg, cpm, card))
+            del pe
+        del state, scene, clip
+
+        out = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            report = cap.run(device=DEVICE, scene_path=e2e.scene_path(s, tmp), outdir=os.path.join(tmp, "capability"),
+                             report_path=None, sizes=CAP_SIZES)
+        torch.cuda.synchronize()
+        cap_s = time.perf_counter() - t0
+        cap_launches = read_launches()
+    for name in ("tracking", "edit", "interp", "layers"):
+        require(name in report, f"capability section {name} missing")
+    numbers = [v for sec in ("tracking", "edit", "interp", "layers") for v in report[sec].values()]
+    numbers += [report["recon_psnr_f0"], *report["timings_s"].values()]
+    require(all(np.isfinite(v) for v in numbers), f"capability numbers not finite: {report}")
+    require({"nvs", "stereo"} <= set(report["timings_s"]), f"capability sections run: {report['timings_s']}")
+    log("capability", f"torch_capability_480p on the fitted scene ({'full sizes and step counts' if CAP_SIZES is None else CAP_SIZES}): "
+                      f"{cap_s:.1f} s; frame-0 PSNR {report['recon_psnr_f0']}; tracking {report['tracking']}; "
+                      f"edit {report['edit']}; interp {report['interp']}; layers {report['layers']}; seconds "
+                      f"{report['timings_s']}; launches {cap_launches} {card}")
+    log("e2e", f"phase 25 in {time.perf_counter() - t_phase:.1f} s")
+    return rows, launches, cap_launches
 
 
 def main() -> int:
@@ -2602,6 +2759,10 @@ def main() -> int:
     tut_rows, tut_fit_launches, tut_orbit_launches = tutorials_phase(args, dev, card, cpm)
     instances = merge_rows(instances, tut_rows)
 
+    # ---- 25. the production harness: torch_e2e_480p, then torch_capability_480p --
+    e2e_rows, e2e_launches, cap_launches = e2e_phase(args, dev, card, cpm)
+    instances = merge_rows(instances, e2e_rows)
+
     kernels = [
         {"name": "blend_forward", "route": "cuda",
          "source": "splatter_a_video_tpu_torch/csrc/blend_forward.cu",
@@ -2643,6 +2804,8 @@ def main() -> int:
         k["wide_launches"] = wide_launches[k["name"]]
         # the gs_2d fit's and the gs_3d orbit's launches (phase 24)
         k["gs_2d_launches"], k["gs_3d_launches"] = tut_fit_launches[k["name"]], tut_orbit_launches[k["name"]]
+        # the production harness's fit and evaluation, and the capability harness (phase 25)
+        k["e2e_launches"], k["capability_launches"] = e2e_launches[k["name"]], cap_launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

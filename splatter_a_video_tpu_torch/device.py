@@ -29,3 +29,14 @@ def to_device(x: torch.Tensor, device) -> torch.Tensor:
     if dev.type != "cuda":
         return x.to(dev)
     return x.pin_memory().to(dev, non_blocking=True)
+
+
+def hardware(device) -> str:
+    """The card's name and power limit as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` prints them, or "cpu"."""
+    import subprocess
+
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]

@@ -8,7 +8,11 @@ The entry points outside the package are held the same way: each tutorial
 `examples/<name>.py` has `examples/torch_<name>.py` and each converter
 `scripts/convert_<name>.py` has `scripts/torch_convert_<name>.py`, with
 every top-level name of the JAX file, importing nothing of JAX or of the
-JAX package.
+JAX package. The production harness `scripts/e2e_480p.py` /
+`capability_480p.py`, written as top-level code in JAX and as functions in
+the port, is held by the environment knobs each file reads instead; every
+other script of `scripts/` that imports JAX is listed with the reason it
+has no port.
 """
 
 import ast
@@ -224,3 +228,105 @@ def test_cli_help_states_ported_features(flag):
     helps = {a.option_strings[0]: a.help or "" for a in parser._actions if a.option_strings}
     assert not any("not ported" in h for h in helps.values())
     assert helps[flag] and "raise" not in helps[flag]
+
+
+# the harness pairs, held by the environment knobs they read: JAX script -> knob prefix
+HARNESS = {"scripts/e2e_480p.py": "E480_", "scripts/capability_480p.py": "CAP_"}
+
+# JAX scripts of scripts/ with no port: script -> (port counterpart, reason)
+TPU_TOOLING = "TPU profiling and relay tooling: measures the JAX package's XLA and Pallas code on the TPU"
+NOT_PORTED_SCRIPTS = {
+    "scripts/bench_train.py": ("chip_smoke.py phase 11 ([times] train step)", TPU_TOOLING),
+    "scripts/bench_train_dense.py": ("chip_smoke.py phase 12 ([fit], the fitted state's step)", TPU_TOOLING),
+    "scripts/bisect_bin.py": ("none", "bisects an XLA compile time of the TPU binning; the port compiles nothing"),
+    "scripts/diag_density_events.py": ("scripts/torch_e2e_480p.py (densify_totals)",
+                                       "a one-off diagnostic of a TPU fit's density events"),
+    "scripts/diag_texture.py": ("scripts/torch_e2e_480p.py (psnr_per_frame)",
+                                "a one-off diagnostic of a TPU fit's train / eval gap"),
+    "scripts/e2e_tpu.py": ("scripts/torch_e2e_480p.py", "the TPU's smaller end-to-end proof; "
+                                                        "the production harness is ported"),
+    "scripts/profile_atlas_lbs.py": ("chip_smoke.py phase 17 ([atlas])", TPU_TOOLING),
+    "scripts/profile_binning.py": ("chip_smoke.py (K2, [times])", TPU_TOOLING),
+    "scripts/profile_prims.py": ("none", TPU_TOOLING),
+    "scripts/profile_render.py": ("chip_smoke.py ([times] render_frame)", TPU_TOOLING),
+    "scripts/profile_stages.py": ("chip_smoke.py ([times])", TPU_TOOLING),
+    "scripts/profile_train.py": ("chip_smoke.py ([times] train step)", TPU_TOOLING),
+    "scripts/sweep_render.py": ("scripts/torch_blend_ab.py", TPU_TOOLING),
+    "scripts/tpu_smoke.py": ("chip_smoke.py", "the TPU's smoke run"),
+    "scripts/validate_tpu.sh": ("chip_smoke.py", "the TPU's validation pipeline (relay probe, e2e, bench)"),
+}
+
+
+def imports_jax(path: pathlib.Path) -> bool:
+    if path.suffix == ".sh":
+        return "jax" in path.read_text()
+    return bool(set(imported_roots(path)) & set(FORBIDDEN))
+
+
+JAX_SCRIPTS = sorted(p.relative_to(ROOT).as_posix() for p in (ROOT / "scripts").iterdir()
+                     if p.suffix in (".py", ".sh") and not p.name.startswith("torch_") and imports_jax(p))
+
+
+@pytest.mark.parametrize("rel", JAX_SCRIPTS)
+def test_jax_script_is_ported_or_listed(rel):
+    port = (ROOT / rel).with_name("torch_" + pathlib.Path(rel).name)
+    if rel in NOT_PORTED_SCRIPTS:
+        assert not port.exists(), f"{rel} is ported now: remove it from NOT_PORTED_SCRIPTS"
+        assert all(NOT_PORTED_SCRIPTS[rel])
+        return
+    assert rel in JAX_ENTRY_POINTS or rel in HARNESS, f"{rel}: no port and no entry in NOT_PORTED_SCRIPTS"
+    assert port.exists()
+
+
+def test_not_ported_scripts_exist():
+    assert all((ROOT / rel).exists() for rel in NOT_PORTED_SCRIPTS)
+
+
+def env_knobs(path: pathlib.Path, prefix: str):
+    """The environment variables named with `prefix` in a file's code."""
+    return {n.value for n in ast.walk(ast.parse(path.read_text()))
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and n.value.startswith(prefix) and n.value[len(prefix):].replace("_", "").isalnum()}
+
+
+@pytest.mark.parametrize("rel", sorted(HARNESS))
+def test_harness_port_reads_the_same_knobs(rel):
+    jax_path = ROOT / rel
+    port = jax_path.with_name("torch_" + jax_path.name)
+    assert port.exists(), f"no port of {rel}"
+    want = env_knobs(jax_path, HARNESS[rel])
+    assert len(want) >= 4
+    assert env_knobs(port, HARNESS[rel]) == want
+    bad = sorted(set(imported_roots(port)) & set(FORBIDDEN))
+    assert not bad, f"{port.relative_to(ROOT)} imports {bad}"
+
+
+def load_port_script(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+VARIANTS = {"flagship": dict(E480_TEXTURE="1"), "blobs": {}, "T250": dict(E480_TEXTURE="1", E480_FRAMES="250"),
+            "capacity": dict(E480_TEXTURE="1", E480_CAPF="1.96"), "attr": dict(E480_TEXTURE="1", E480_ATTR="1"),
+            "nodensify": dict(E480_DENSIFY="0"), "suffix": dict(E480_TEXTURE="1", E480_SUFFIX="r5full")}
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_port_outputs_are_not_jax_files(variant):
+    """No default output of the port's harness is a file the JAX scripts
+    write (`out/e480/`, `METRICS_480p*.json`, `CAPABILITY_480p.json`) or
+    one of their committed records."""
+    e2e, cap = load_port_script("torch_e2e_480p"), load_port_script("torch_capability_480p")
+    s = e2e.read_env(VARIANTS[variant])
+    outs = [e2e.record_path(s, 196_608), e2e.scene_path(s), cap.OUTDIR, cap.REPORT]
+    rels = [pathlib.Path(p).resolve().relative_to(ROOT).as_posix() for p in outs]
+    jax_records = {p.name for p in ROOT.glob("METRICS_480p*.json") if not p.stem.endswith("_torch")}
+    jax_records |= {"CAPABILITY_480p.json"}
+    for rel in rels:
+        assert not rel.startswith("out/e480/") and rel != "out/e480", rel
+        assert rel not in jax_records, rel
+        assert rel.startswith("out/e480_torch/") or rel.endswith("_torch.json"), rel
