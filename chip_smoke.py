@@ -2171,6 +2171,66 @@ def jax_record_keys() -> list:
     raise RuntimeError(f"no record dict in {path}")
 
 
+def density_card_check(state, dcfg, seed: int) -> None:
+    """One density event on a fitted production state, on the card and on
+    the CPU from the same tensors: statistics drawn from `seed` as a few
+    hundred (sum, visit count) pairs, four times larger for Gaussians past
+    the clone / split boundary, so that `grads` ties exactly, splits are
+    placed and the growth budget binds. Every count, mask,
+    parameter and moment `torch.equal`; the split children's positions
+    within 1e-6 (their offsets' exp and products round otherwise on the
+    card, as in XLA's CPU code: `tests/test_torch_density_production.py`)."""
+    import torch
+
+    from splatter_a_video_tpu_torch.train import density, optim, prng
+
+    rng = np.random.RandomState(seed)
+    sc = state.scene
+    cap = sc.cfg.capacity
+    pool_d = rng.randint(1, 60, 300).astype(np.float32)
+    pool_g = np.exp(rng.normal(np.log(4e-5), 1.0, 300)).astype(np.float32)
+    pick = rng.randint(0, 300, cap)
+    denom = pool_d[pick]
+    # large Gaussians collect larger gradients, as in a fit: both classes are hot
+    big = torch.exp(sc.params["scaling"]).max(-1).values.cpu().numpy() > dcfg.percent_dense * dcfg.cameras_extent
+    stats = [np.zeros(cap, np.float32), (pool_g[pick] * denom * np.where(big, 4, 1)).astype(np.float32), denom]
+    key = prng.key(seed)
+    out = []
+    for dev in (sc.alive.device, torch.device("cpu")):
+        scene = dataclasses.replace(sc, params={k: v.detach().to(dev) for k, v in sc.params.items()},
+                                    aux={k: v.to(dev) for k, v in sc.aux.items()})
+        opt = optim.AdamState(state.opt_state.count, {k: v.to(dev) for k, v in state.opt_state.mu.items()},
+                              {k: v.to(dev) for k, v in state.opt_state.nu.items()})
+        ds = density.DensifyState(*(torch.from_numpy(a).to(dev) for a in stats))
+        t0 = time.perf_counter()
+        res = density.densify_and_prune(scene, opt, ds, state.step, dcfg, key=key)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out.append((res, time.perf_counter() - t0))
+    ((gs, go, _, gi), g_s), ((cs, co, _, ci), c_s) = out
+    info = {f: int(getattr(ci, f)) for f in density.DensifyInfo._fields}
+    require({f: int(getattr(gi, f)) for f in density.DensifyInfo._fields} == info,
+            f"density on the card {gi} != on the CPU {ci}")
+    alive0 = sc.alive.cpu()
+    require(torch.equal(gs.alive.cpu(), cs.alive), "density: alive masks differ between the card and the CPU")
+    kids = ~alive0 & cs.alive
+    require(info["num_split"] > 0 and info["dropped"] > 0, f"density: splits placed under a binding budget {info}")
+    for k, v in cs.params.items():
+        g = gs.params[k].cpu()
+        if k == "position":
+            same = torch.equal(g[~kids], v[~kids]) and float((g[kids] - v[kids]).abs().max()) <= 1e-6
+        else:
+            same = torch.equal(g, v)
+        require(same, f"density: {k} differs between the card and the CPU")
+    for kind in ("mu", "nu"):
+        for k, v in getattr(co, kind).items():
+            require(torch.equal(getattr(go, kind)[k].cpu(), v), f"density: {kind}[{k}] differs")
+    pos_err = float((gs.params["position"].cpu()[kids] - cs.params["position"][kids]).abs().max())
+    log("e2e", f"density event on the fitted state ({int(alive0.sum())} alive of {cap}, seeded statistics with "
+               f"ties): card == CPU, info {info}, children {int(kids.sum())}, split children's positions max "
+               f"|card - CPU| {pos_err:.3g}; {g_s * 1e3:.1f} ms on the card, {c_s * 1e3:.1f} ms on the CPU")
+
+
 def e2e_phase(args, dev, card: str, cpm: float):
     """Phase 25: the production harness. `scripts/torch_e2e_480p.py` fits
     the flagship clip (E2E_ENV, cut by E2E_CUTS) and evaluates it through
@@ -2251,6 +2311,11 @@ def e2e_phase(args, dev, card: str, cpm: float):
                    f"{record['final_alive']}, density totals {dt}; eval intersections "
                    f"{record['eval_num_intersections']}; {len(hist)} logged steps finite; record keys == "
                    f"scripts/e2e_480p.py's")
+        fired = hist[-1]["densify_events"]
+        require([ev["step"] for ev in fired] == events, f"density events at {fired}, expected {events}")
+        for ev in fired:
+            log("e2e", f"density event at step {ev['step']}: cloned {ev['num_cloned']}, split {ev['num_split']}, "
+                       f"pruned {ev['num_pruned']}, dropped {ev['dropped']}, alive {ev['num_alive']}")
 
         # K1-K4 on the fitted scene's frame 0: the first blend after production-schedule density events
         scene = state.scene
@@ -2268,6 +2333,7 @@ def e2e_phase(args, dev, card: str, cpm: float):
                                                    backward=False),
                               k2_instance("e2e eval frame 0", pe, rcfg, cpm, card))
             del pe
+        density_card_check(state, tcfg.densify, args.seed + 25)
         del state, scene, clip
 
         out = io.StringIO()

@@ -106,7 +106,9 @@ def _place_candidates(scene_params: Dict[str, torch.Tensor], alive, cand_parent,
     scaling_act = torch.exp(scene_params["scaling"][src])
     Rm = quat_to_rotmat(quat_normalize(scene_params["rotation"][src]))
     split_pos_off = torch.einsum("nij,nj->ni", Rm, noise * scaling_act)
-    shrink = torch.log(torch.tensor(0.8 * split_num, dtype=torch.float32, device=dev))
+    # the children's shrink, log(0.8 * split_num), is taken on the CPU: the
+    # card's float32 log of 1.6 lies one ulp from the CPU's (and JAX's)
+    shrink = torch.log(torch.tensor(0.8 * split_num, dtype=torch.float32)).to(dev)
     new_params = {}
     for name, val in scene_params.items():
         if val.dim() == 0 or val.shape[0] != cap:

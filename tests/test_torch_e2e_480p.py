@@ -28,6 +28,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -150,3 +151,30 @@ def test_fit_log_prints_each_log_step(monkeypatch, capsys):
     steps = ast.literal_eval(lines[0].split(":", 2)[2].strip())
     assert [row[0] for row in steps] == [1, 2, 3, 4, 5] and all(row[4] == 800 for row in steps)
     assert json.loads(lines[1].split("record", 1)[1])["recon_psnr"] > 0
+
+
+def test_fit_log_seed_ulp_and_depth_options(monkeypatch, capsys):
+    """`--seed` sets FitConfig.seed (another fit), `--arap_ulp` moves the
+    ARAP weight one float32 ulp up, `--depth_weight` sets the depth loss's
+    weight; one line per density event and, with `--depth_stats`, one per
+    log step."""
+    for k in list(os.environ):
+        if k.startswith("E480_"):
+            monkeypatch.delenv(k)
+    for k, v in CASES["schedule"].items():
+        monkeypatch.setenv(k, v)
+    fit_log = load_script("torch_fit_log")
+    assert fit_log.main(["--device", "cpu"]) == 0
+    base = capsys.readouterr().out.splitlines()
+    assert fit_log.main(["--device", "cpu", "--seed", "1", "--arap_ulp", "--depth_weight", "0.5",
+                         "--depth_stats"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    ulp = float(np.nextafter(np.float32(1e-3), np.float32(np.inf)))
+    assert f"fit at budget 32768: seed 1, arap_weight {ulp!r}, depth_loss_weight 0.5" in out
+    assert "fit at budget 32768: seed 0, arap_weight 0.001, depth_loss_weight 1.0" in base
+    events = [ln for ln in out if ln.startswith("event ")]
+    assert [int(ln.split()[1].rstrip(":")) for ln in events] == [4, 6, 8]
+    assert all(", alive " in ln and ", dropped " in ln for ln in events)
+    assert [ln.split(":")[0] for ln in out if ln.startswith("depth ")] == [f"depth {s}" for s in range(1, 9)]
+    rows = lambda lines: next(ln for ln in lines if ln.startswith("budget 32768: step,"))
+    assert rows(out) != rows(base)

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card. CUDA kernels have no CPU mode: without a CUDA device these tests skip.
+"""The port's CUDA kernels against their plain PyTorch versions, and one
+density event against the CPU, on the card. CUDA kernels have no CPU mode:
+without a CUDA device these tests skip.
 On a GPU machine (without JAX, so without the JAX tests' conftest):
 `python -m pytest --noconftest tests/test_torch_kernels.py -q`.
 The kernels are built with --fmad=false and repeat the plain versions'
@@ -336,3 +337,57 @@ def test_reduce_gaussians_wide_rows_and_saturated_budget(C, bias, saturate):
     torch.cuda.synchronize()
     assert torch.equal(red, ref) and torch.equal(red, again)
     assert float(red.abs().sum()) > 0
+
+
+def test_density_event_on_the_card_equals_the_cpu():
+    """One density event at the production size (131,072 slots, 123,800
+    alive, tied `grads`, a binding 5% budget, clones and splits) on the card
+    and on the CPU: every count, mask, parameter and moment equal, but the
+    split children's positions within 1e-6 (their offsets' exp and products
+    round otherwise on the card). The split's shrink, log(1.6), was once
+    taken on the card and moved every split child's scaling off the CPU's."""
+    from splatter_a_video_tpu_torch.models.gaussians import GaussianScene, SceneConfig
+    from splatter_a_video_tpu_torch.train import density, optim, prng
+
+    rng = np.random.RandomState(15)
+    cap, n = 131_072, 123_800
+    alive = np.zeros(cap, bool)
+    alive[rng.permutation(cap)[:n]] = True
+    scaling = np.log(rng.uniform(0.0008, 0.012, (cap, 3))).astype(np.float32)
+    # 3% with log-scales in (-1, 0.3): a child's log-scale less the shrink then
+    # lies in binades below 1, where one ulp of the shrink shows
+    wide = rng.uniform(0, 1, cap) < 0.03
+    scaling[wide] = rng.uniform(-1.0, 0.3, (wide.sum(), 3)).astype(np.float32)
+    params = {"position": rng.randn(cap, 3).astype(np.float32), "scaling": scaling,
+              "rotation": rng.randn(cap, 4).astype(np.float32),
+              "opacity": rng.uniform(-3.4, 2.5, (cap, 1)).astype(np.float32),
+              "features_dc": rng.randn(cap, 1, 3).astype(np.float32)}
+    big = np.exp(scaling).max(-1) > 0.005
+    pool_d = rng.randint(1, 60, 300).astype(np.float32)
+    pool_g = np.exp(rng.normal(np.log(4e-5), 1.0, 300)).astype(np.float32)
+    pick = rng.randint(0, 300, cap)
+    stats = [np.zeros(cap, np.float32), (pool_g[pick] * pool_d[pick] * np.where(big, 4, 1)).astype(np.float32),
+             pool_d[pick]]
+    cfg = density.DensifyConfig(max_growth_frac=0.05, size_prune_always=True)
+    out = []
+    for dev in ("cuda", "cpu"):
+        t = {k: torch.from_numpy(v).to(dev) for k, v in params.items()}
+        scene = GaussianScene(params=t, aux={"alive": torch.from_numpy(alive).to(dev)},
+                              cfg=SceneConfig(capacity=cap, num_frames=2, traj="static"))
+        opt = optim.AdamState(1500, {k: v * 1e-3 for k, v in t.items()}, {k: v * v * 1e-6 for k, v in t.items()})
+        out.append(density.densify_and_prune(scene, opt, density.DensifyState(*(torch.from_numpy(a).to(dev)
+                                                                                 for a in stats)),
+                                             1500, cfg, key=prng.key(15)))
+    (gs, go, _, gi), (cs, co, _, ci) = out
+    assert [int(x) for x in gi] == [int(x) for x in ci]
+    assert int(ci.num_cloned) > 0 and int(ci.num_split) > 0 and int(ci.dropped) > 0
+    assert torch.equal(gs.alive.cpu(), cs.alive)
+    kids = cs.alive & ~torch.from_numpy(alive)
+    for k, v in cs.params.items():
+        g = gs.params[k].cpu()
+        if k == "position":
+            assert torch.equal(g[~kids], v[~kids]) and float((g[kids] - v[kids]).abs().max()) <= 1e-6
+        else:
+            assert torch.equal(g, v), k
+    for k in co.mu:
+        assert torch.equal(go.mu[k].cpu(), co.mu[k]) and torch.equal(go.nu[k].cpu(), co.nu[k]), k
