@@ -1,0 +1,14 @@
+"""Stream time per traced step of Adam over every attribute (the program's
+`step.adam` span), from the program's record of the traced window (ms)."""
+
+
+def read(ctx):
+    try:
+        from splatter_a_video_tpu_torch.utils import spans
+    except ImportError:                  # a program without the port's spans
+        return None
+    w = spans.last_window()
+    s = w["spans"].get("step.adam")
+    if not w["steps"] or s is None or s["stream_s"] is None:
+        return None
+    return s["stream_s"] / w["steps"] * 1e3

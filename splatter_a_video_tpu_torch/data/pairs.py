@@ -28,6 +28,7 @@ import torch
 
 from ..device import to_device
 from ..train.trainer import Batch
+from ..utils import spans as _spans
 from .video_flow import VideoFlowData
 
 
@@ -140,7 +141,8 @@ def batch_to_device(batch: Batch, device) -> Batch:
     """The batch's numpy arrays as tensors on `device` (on a GPU one pinned
     host copy and one non-blocking upload each); t1 and t2 stay host ints."""
     move = lambda a: None if a is None else to_device(torch.from_numpy(np.ascontiguousarray(a)), device)
-    return Batch(int(batch.t1), int(batch.t2), *(move(a) for a in batch[2:]))
+    with _spans.span("fit.upload"):
+        return Batch(int(batch.t1), int(batch.t2), *(move(a) for a in batch[2:]))
 
 
 def _prefetch(make, steps, prefetch: int) -> Iterator[Batch]:
@@ -160,7 +162,8 @@ def _prefetch(make, steps, prefetch: int) -> Iterator[Batch]:
     th.start()
     try:
         while True:
-            b = q.get()
+            with _spans.span("fit.batch_wait"):
+                b = q.get()
             if b is None:
                 return
             yield b

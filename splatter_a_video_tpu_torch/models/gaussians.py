@@ -15,11 +15,12 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import blocking_to, resolve_device
 from ..ops import knn as _knn
 from ..ops import sh as _sh
 from ..ops.quaternion import inverse_sigmoid
 from ..train import prng
+from ..utils import spans as _spans
 from . import trajectory as _traj
 
 _MOTION = ("pos_poly_feat", "pos_fourier_feat", "rot_poly_feat", "rot_fourier_feat")
@@ -47,7 +48,7 @@ class SceneConfig:
 
     def t_norm(self, t, device=None) -> torch.Tensor:
         """Frame index -> normalised time in [0, 1]."""
-        t = torch.as_tensor(t, dtype=torch.float32, device=device)
+        t = blocking_to(t, device, torch.float32)
         return (t - self.start_frame_id) / max(self.num_frames - 1, 1)
 
 
@@ -101,7 +102,7 @@ class GaussianScene:
             )
         if self.cfg.traj == "cubic_spline":
             # the spline's time ignores start_frame_id, as in the JAX package
-            ts = torch.as_tensor(t, dtype=torch.float32, device=self.device)
+            ts = blocking_to(t, self.device, torch.float32)
             return _traj.position_cubic_spline(
                 p["position"], p["pos_cubic_coeff"], self.aux["spline_knots"],
                 ts / max(self.cfg.num_frames - 1, 1), detach_pos=detach_pos,
@@ -160,7 +161,8 @@ def create_scene(
     pos_full[:N] = positions
     pos_full[N:] = np.array([0.0, 0.0, -10.0], np.float32)
 
-    d2 = _knn.mean_knn3_sq_dist(torch.from_numpy(positions).to(dev)).cpu().numpy()
+    with _spans.setup_span("setup.knn"):   # ends at the read that waits for the card
+        d2 = _knn.mean_knn3_sq_dist(torch.from_numpy(positions).to(dev)).cpu().numpy()
     scaling = np.full((cap, 3), np.log(1e-3), np.float32)
     scaling[:N] = np.log(np.sqrt(np.maximum(d2, 1e-7)))[:, None].repeat(3, 1)
     rotation = np.zeros((cap, 4), np.float32)
@@ -205,7 +207,8 @@ def create_scene(
     if cfg.traj == "cubic_spline":
         if track_seq is None:
             raise ValueError("cubic_spline trajectory needs track_seq [T,N,3]")
-        coeff, knots = _traj.fit_cubic_spline(np.asarray(track_seq, np.float32), cfg.frames_per_knot)
+        with _spans.setup_span("setup.spline"):
+            coeff, knots = _traj.fit_cubic_spline(np.asarray(track_seq, np.float32), cfg.frames_per_knot)
         coeff_full = np.zeros((cap,) + coeff.shape[1:], np.float32)
         coeff_full[:N] = coeff
         params["pos_cubic_coeff"] = coeff_full

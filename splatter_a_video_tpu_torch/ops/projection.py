@@ -16,6 +16,8 @@ from typing import Tuple
 
 import torch
 
+from ..device import blocking_to
+
 BLOCK = 16
 
 
@@ -32,7 +34,7 @@ def tile_grid(W: int, H: int, block=BLOCK) -> Tuple[int, int]:
 
 
 def _culled(uv, depth_mask, W, H, extent):
-    wh = torch.tensor([W, H], dtype=uv.dtype, device=uv.device)
+    wh = blocking_to([W, H], uv.device, uv.dtype)
     lo = (1.0 - extent) * wh * 0.5
     hi = (1.0 + extent) * wh * 0.5
     return depth_mask | torch.any((uv < lo) | (uv > hi), dim=-1)
@@ -47,7 +49,7 @@ def project_ortho(xyz, extr, W: int, H: int, nearest: float = 0.01, extent: floa
     R = extr[:3, :3]
     t = extr[:3, 3]
     pt_cam = xyz @ R.T + t
-    wh = torch.tensor([W, H], dtype=xyz.dtype, device=xyz.device)
+    wh = blocking_to([W, H], xyz.device, xyz.dtype)
     uv = (pt_cam[:, :2] + 1.0) * wh * 0.5 - 0.5
     depth = torch.nan_to_num(pt_cam[:, 2])
     culled = _culled(uv, depth <= nearest, W, H, extent)
@@ -132,8 +134,8 @@ def _finish_cov2d(
 
     bx, by = _block_xy(block)
     tgx, tgy = tile_grid(W, H, block)
-    tb = torch.tensor([tgx, tgy], dtype=torch.int32, device=uv.device)
-    bvec = torch.tensor([bx, by], dtype=uv.dtype, device=uv.device)
+    tb = blocking_to([tgx, tgy], uv.device, torch.int32)
+    bvec = blocking_to([bx, by], uv.device, uv.dtype)
     zero = torch.zeros_like(tb)
     tile_min = torch.clamp(torch.floor((uv - r2) / bvec).to(torch.int32), zero, tb)
     tile_max = torch.clamp(torch.floor((uv + r2 + (bvec - 1)) / bvec).to(torch.int32), zero, tb)

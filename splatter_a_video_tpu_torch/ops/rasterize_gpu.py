@@ -31,6 +31,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..device import blocking_to
+from ..utils import spans as _spans
 from . import _build
 from . import binning as _binning
 from .projection import tile_grid
@@ -622,16 +624,18 @@ def splat_scene(
     """
     dev = uv.device
     C = features.shape[1]
-    b = _binning.bin_intersections(
-        depth.detach(), tiles, rect_min, rect_max, W, H,
-        max_intersections=max_intersections,
-        max_tiles_per_gaussian=max_tiles_per_gaussian, block=block,
-    )
-    bg_t = torch.as_tensor(bg, dtype=torch.float32, device=dev).reshape(-1)
-    mask = (1.0,) * C if alpha_grad_mask is None else alpha_grad_mask
-    mask_t = torch.as_tensor(mask, dtype=torch.float32, device=dev).reshape(-1)
-    image, final_T, ncontrib, gs_idx = _Splat.apply(
-        uv, conic, opacity, features.contiguous(),
-        abs_sink, opacity_bias, b, bg_t, mask_t, W, H, tuple(block), K_idx,
-    )
+    with _spans.span("step.binning"):
+        b = _binning.bin_intersections(
+            depth.detach(), tiles, rect_min, rect_max, W, H,
+            max_intersections=max_intersections,
+            max_tiles_per_gaussian=max_tiles_per_gaussian, block=block,
+        )
+    with _spans.span("step.blend"):
+        bg_t = blocking_to(bg, dev, torch.float32).reshape(-1)
+        mask = (1.0,) * C if alpha_grad_mask is None else alpha_grad_mask
+        mask_t = blocking_to(mask, dev, torch.float32).reshape(-1)
+        image, final_T, ncontrib, gs_idx = _Splat.apply(
+            uv, conic, opacity, features.contiguous(),
+            abs_sink, opacity_bias, b, bg_t, mask_t, W, H, tuple(block), K_idx,
+        )
     return image, final_T, ncontrib, (gs_idx if K_idx else None), b.num_intersections

@@ -6,7 +6,17 @@ The loop keeps the JAX package's order step by step. Per-frame images
 live on the device in a `trainer.FrameStore`, so a step uploads only its
 track batch (pinned, non-blocking). The host reads device values only
 where the JAX package reads them: at the log and hook cadences, at density
-events and at error-map resampling; no other step waits for the card.
+events and at error-map resampling. A step still waits for the card at its
+blocking copies of host constants (`device.blocking_to`, counted as `sync`).
+
+`profile_dir` traces steps [profile_start, profile_start + profile_count)
+with `torch.profiler` into `fit_steps_<a>_<b>.json` there. While any
+profiler records, this one or a caller's, the spans and counters of
+`utils/spans` record too: `fit.step` and the train step's stages
+(`step.*`), `fit.batch_wait`, `fit.upload`, `fit.density_event`,
+`fit.log_read`, and the `sync` and `h2d_async` counters. Beside the trace,
+`fit_steps_<a>_<b>.spans.json` holds each span's host and stream ms and
+the counters, per step.
 
 `refine_camera=True` trains per-frame camera twists with the scene
 (`camera_refine.make_joint_train_step`); the twists and their Adam state
@@ -22,6 +32,7 @@ as the JAX package does on one device.
 
 from __future__ import annotations
 
+import json
 import os
 import time
 from dataclasses import dataclass
@@ -36,6 +47,7 @@ from ..data.video_flow import VideoFlowData, bilinear_sample, normalize_xy
 from ..device import resolve_device
 from ..models import camera as _camera
 from ..models.gaussians import GaussianScene, SceneConfig, create_scene
+from ..utils import spans as _spans
 from . import losses as _losses
 from . import optim as _optim
 from . import trainer as _trainer
@@ -66,7 +78,7 @@ class FitConfig:
     # a non-finite loss at a log step raises with that step's metrics
     nan_guard: bool = True
     # a torch.profiler trace of steps [start, start + count) into this
-    # directory (None = off)
+    # directory, with the spans' record beside it (None = off)
     profile_dir: Optional[str] = None
     profile_start: int = 200
     profile_count: int = 5
@@ -150,6 +162,7 @@ def build_scene_from_clip(data: VideoFlowData, cfg: FitConfig,
 
 
 def _sync(dev: torch.device) -> None:
+    _spans.count("sync")
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
@@ -170,6 +183,7 @@ def _make_frame_error_fn(data: VideoFlowData, tcfg: _trainer.TrainerConfig, cam,
                 - gts[t]))
             for t in range(data.num_frames)
         ])
+        _spans.count("sync")
         return errs.cpu().numpy()
 
     return frame_errors
@@ -234,6 +248,7 @@ def _run_validation(data, scene, render_panels, val_frames, hooks, ctx):
 def _read_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
     """All of a step's metrics in one device-to-host read."""
     names = list(metrics)
+    _spans.count("sync")
     vals = torch.stack([metrics[k].reshape(()).to(torch.float32) for k in names]).tolist()
     return dict(zip(names, vals))
 
@@ -288,11 +303,12 @@ def fit_clip(
             num_track_samples=fit_cfg.num_track_samples, max_steps=fit_cfg.num_iters,
         )
 
-    track_seq, colors = lift_clip(data, fit_cfg)
-    t_lift = time.time()
-    scene, scfg = scene_from_tracks(track_seq, colors, data.num_frames, fit_cfg, device=dev)
-    _sync(dev)
-    t_scene = time.time()
+    _spans.reset_setup()
+    with _spans.setup_span("setup.lift"):
+        track_seq, colors = lift_clip(data, fit_cfg)
+    with _spans.setup_span("setup.scene"):
+        scene, scfg = scene_from_tracks(track_seq, colors, data.num_frames, fit_cfg, device=dev)
+        _sync(dev)
     cam = _camera.canonical_camera(W, H)
     # the per-frame supervision goes to the device once; batches stay slim
     need_mask = trainer_cfg.mask_attr_weight > 0 or trainer_cfg.fg_layer_weight > 0
@@ -415,83 +431,91 @@ def fit_clip(
                 profiler.start()
             elif profiler is not None and step == fit_cfg.profile_start + fit_cfg.profile_count:
                 profiler = _stop_profile(profiler, fit_cfg, dev)
-        state, metrics = train_step(state, to_step(batch))
-        if t_first_step is None:
-            # one deliberate wait: separates the first step (kernel builds,
-            # caches) from the steady rate in the timing breakdown
-            _sync(dev)
-            t_first_step = time.time()
-        if _trainer.should_densify(trainer_cfg, step) and not densify_stopped:
-            state, dinfo = density_step(state)
-            # capacity accounting: candidates that find no free slot are
-            # dropped, never silently. Known quirk kept from the JAX package:
-            # `dropped` counts candidates, not split parents kept alive, so
-            # it undercounts.
-            info = {k: int(v) for k, v in dinfo._asdict().items()}
-            densify_events.append({"step": step, **info})
-            densify_totals["cloned"] += info["num_cloned"]
-            densify_totals["split"] += info["num_split"]
-            densify_totals["pruned"] += info["num_pruned"]
-            densify_totals["dropped"] += info["dropped"]
-            densify_totals["events"] += 1
-            if info["dropped"] > 0:
-                say(f"# densify step {step}: {info['dropped']} candidates dropped (capacity "
-                      f"{int(state.scene.cfg.capacity)}, alive {info['num_alive']})", flush=True)
-            # saturation latch: a full scene cannot grow, and further events
-            # only prune and refill (the churn that collapsed the textured
-            # 480p fit in the JAX package). Known quirk kept from the JAX
-            # package: the latch lives here in the fit loop, not in
-            # density control, and lasts for the rest of the run.
-            sat_stop = getattr(trainer_cfg.densify, "saturation_stop", 0.0)
-            if sat_stop and info["num_alive"] >= sat_stop * state.scene.cfg.capacity:
-                densify_stopped = True
-                densify_totals["stopped_at_step"] = step
-                say(f"# densify stopped at step {step}: saturation {info['num_alive']}/"
-                      f"{int(state.scene.cfg.capacity)} >= {sat_stop:.2f} (churn guard)", flush=True)
-        if _trainer.should_reset_opacity(trainer_cfg, step):
-            state = opacity_reset(state)
-        if frame_errors is not None and step % fit_cfg.error_resample_every == 0 and step < fit_cfg.num_iters:
-            errs = np.maximum(frame_errors(state.scene), 1e-8)
-            sampler.cfg.error_weights = errs  # biases later id1 draws
-            if out_dir is not None and main_rank:
-                np.savetxt(os.path.join(out_dir, "flow_error.txt"), errs)
-        fire_log = step % fit_cfg.log_every == 0 or step == fit_cfg.num_iters
-        if fire_log or any(step % c == 0 for c in hook_cadences):
-            m = _read_metrics(metrics)
-            m["step"] = step
-            m["alive"] = int(state.scene.num_alive)
-            m["capacity"] = int(state.scene.cfg.capacity)
-            m["saturation"] = round(m["alive"] / max(m["capacity"], 1), 4)
-            if densify_totals["events"]:
-                m["densify"] = dict(densify_totals)
-            m["wall_s"] = time.time() - t_start
-            if fire_log:
-                history.append(m)
-                if fit_cfg.nan_guard and not np.isfinite(m.get("loss", 0.0)):
-                    raise FloatingPointError(f"non-finite loss at step {step}: {m}")
-                if callback:
-                    callback(step, m)
-            ctx.step = step
-            ctx.metrics = m
-            ctx.state = state
-            if cam_refine_state is not None:
-                ctx.camera_xi = cam_refine_state["xi"].cpu().numpy()
-                if out_dir is not None:
-                    _save_cam_refine(cam_refine_state, out_dir)
-            if render_panels is not None and image_every and step % image_every == 0:
-                ctx.images = render_panels(state.scene, step % data.num_frames)
-            run_hooks(hooks, "after_train_iter", ctx)
-        if fit_cfg.val_every and step % fit_cfg.val_every == 0:
-            ctx.step = step
-            ctx.state = state
-            _run_validation(data, state.scene, render_panels, fit_cfg.val_frames, hooks, ctx)
+        _spans.poll(dev)   # the spans record while a profiler records, whoever started it
+        with _spans.span("fit.step"):
+            state, metrics = train_step(state, to_step(batch))
+            if t_first_step is None:
+                # one deliberate wait: separates the first step (kernel builds,
+                # caches) from the steady rate in the timing breakdown
+                _sync(dev)
+                t_first_step = time.time()
+            if _trainer.should_densify(trainer_cfg, step) and not densify_stopped:
+                with _spans.span("fit.density_event"):
+                    state, dinfo = density_step(state)
+                    # capacity accounting: candidates that find no free slot are
+                    # dropped, never silently. Known quirk kept from the JAX package:
+                    # `dropped` counts candidates, not split parents kept alive, so
+                    # it undercounts.
+                    info = {k: int(v) for k, v in dinfo._asdict().items()}
+                    _spans.count("sync", len(info))
+                densify_events.append({"step": step, **info})
+                densify_totals["cloned"] += info["num_cloned"]
+                densify_totals["split"] += info["num_split"]
+                densify_totals["pruned"] += info["num_pruned"]
+                densify_totals["dropped"] += info["dropped"]
+                densify_totals["events"] += 1
+                if info["dropped"] > 0:
+                    say(f"# densify step {step}: {info['dropped']} candidates dropped (capacity "
+                          f"{int(state.scene.cfg.capacity)}, alive {info['num_alive']})", flush=True)
+                # saturation latch: a full scene cannot grow, and further events
+                # only prune and refill (the churn that collapsed the textured
+                # 480p fit in the JAX package). Known quirk kept from the JAX
+                # package: the latch lives here in the fit loop, not in
+                # density control, and lasts for the rest of the run.
+                sat_stop = getattr(trainer_cfg.densify, "saturation_stop", 0.0)
+                if sat_stop and info["num_alive"] >= sat_stop * state.scene.cfg.capacity:
+                    densify_stopped = True
+                    densify_totals["stopped_at_step"] = step
+                    say(f"# densify stopped at step {step}: saturation {info['num_alive']}/"
+                          f"{int(state.scene.cfg.capacity)} >= {sat_stop:.2f} (churn guard)", flush=True)
+            if _trainer.should_reset_opacity(trainer_cfg, step):
+                state = opacity_reset(state)
+            if frame_errors is not None and step % fit_cfg.error_resample_every == 0 and step < fit_cfg.num_iters:
+                errs = np.maximum(frame_errors(state.scene), 1e-8)
+                sampler.cfg.error_weights = errs  # biases later id1 draws
+                if out_dir is not None and main_rank:
+                    np.savetxt(os.path.join(out_dir, "flow_error.txt"), errs)
+            fire_log = step % fit_cfg.log_every == 0 or step == fit_cfg.num_iters
+            if fire_log or any(step % c == 0 for c in hook_cadences):
+                with _spans.span("fit.log_read"):
+                    m = _read_metrics(metrics)
+                    m["step"] = step
+                    m["alive"] = int(state.scene.num_alive)
+                    _spans.count("sync")
+                m["capacity"] = int(state.scene.cfg.capacity)
+                m["saturation"] = round(m["alive"] / max(m["capacity"], 1), 4)
+                if densify_totals["events"]:
+                    m["densify"] = dict(densify_totals)
+                m["wall_s"] = time.time() - t_start
+                if fire_log:
+                    history.append(m)
+                    if fit_cfg.nan_guard and not np.isfinite(m.get("loss", 0.0)):
+                        raise FloatingPointError(f"non-finite loss at step {step}: {m}")
+                    if callback:
+                        callback(step, m)
+                ctx.step = step
+                ctx.metrics = m
+                ctx.state = state
+                if cam_refine_state is not None:
+                    ctx.camera_xi = cam_refine_state["xi"].cpu().numpy()
+                    _spans.count("sync")
+                    if out_dir is not None:
+                        _save_cam_refine(cam_refine_state, out_dir)
+                if render_panels is not None and image_every and step % image_every == 0:
+                    ctx.images = render_panels(state.scene, step % data.num_frames)
+                run_hooks(hooks, "after_train_iter", ctx)
+            if fit_cfg.val_every and step % fit_cfg.val_every == 0:
+                ctx.step = step
+                ctx.state = state
+                _run_validation(data, state.scene, render_panels, fit_cfg.val_frames, hooks, ctx)
     if profiler is not None:
         _stop_profile(profiler, fit_cfg, dev)
     if history:
         _sync(dev)   # the last steps' device work belongs in the times
         t_end = time.time()
-        timing = {"setup_s": round(t_start - t_fit0, 2), "lift_s": round(t_lift - t_fit0, 2),
-                  "create_scene_s": round(t_scene - t_lift, 2)}
+        setup = _spans.last_setup()
+        timing = {"setup_s": round(t_start - t_fit0, 2), "lift_s": round(setup["setup.lift"], 2),
+                  "create_scene_s": round(setup["setup.scene"], 2)}
         if t_first_step is not None:
             timing["first_step_s"] = round(t_first_step - t_start, 2)
             n_steady = int(state.step) - start_step - 1
@@ -518,10 +542,16 @@ def fit_clip(
 
 
 def _stop_profile(profiler, fit_cfg: FitConfig, dev: torch.device):
-    """End the trace and write it as Chrome JSON under `profile_dir`."""
+    """End the trace and write it as Chrome JSON under `profile_dir`, with
+    the spans' window beside it (`.spans.json`: each span's host and stream
+    ms and the counters, per step)."""
     _sync(dev)
     profiler.stop()
+    _spans.poll(dev)
     os.makedirs(fit_cfg.profile_dir, exist_ok=True)
     end = fit_cfg.profile_start + fit_cfg.profile_count
-    profiler.export_chrome_trace(os.path.join(fit_cfg.profile_dir, f"fit_steps_{fit_cfg.profile_start}_{end}.json"))
+    stem = os.path.join(fit_cfg.profile_dir, f"fit_steps_{fit_cfg.profile_start}_{end}")
+    profiler.export_chrome_trace(stem + ".json")
+    with open(stem + ".spans.json", "w") as f:
+        json.dump(_spans.per_step(_spans.last_window()), f, indent=1)
     return None

@@ -19,9 +19,10 @@ from typing import Optional
 
 import torch
 
-from ..device import to_device
+from ..device import blocking_to, to_device
 from ..ops.knn import smallest_k, sq_dists_fma
 from ..ops.ssim import ssim as _ssim
+from ..utils import spans as _spans
 from . import prng
 
 
@@ -33,7 +34,7 @@ def _quantile(x: torch.Tensor, q: float) -> torch.Tensor:
     lo, hi = torch.floor(pos), torch.ceil(pos)
     hw = pos - lo
     lw = 1.0 - hw
-    return s[int(lo)] * lw.to(s.device) + s[int(hi)] * hw.to(s.device)
+    return s[int(lo)] * blocking_to(lw, s.device) + s[int(hi)] * blocking_to(hw, s.device)
 
 
 def _median(x: torch.Tensor) -> torch.Tensor:
@@ -257,7 +258,7 @@ def scale_shift_invariant_depth_loss(pred: torch.Tensor, gt: torch.Tensor, mask=
 
 def denormalize_coords(coords: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """[-1, 1] normalised -> pixel coordinates: (coords + 1) * 0.5 * (w, h)."""
-    wh = torch.tensor([w, h], dtype=coords.dtype, device=coords.device)
+    wh = blocking_to([w, h], coords.device, coords.dtype)
     return (coords + 1.0) * 0.5 * wh
 
 
@@ -278,7 +279,7 @@ def tracking_loss(predicted_track_map, query_pixels, gt_tracks_2d, target_visibl
     qy = query_pixels[:, 1].to(torch.int64)
     pred_at_query = pred_2d[qy, qx]
     w_interval = torch.exp(-2.0 * torch.as_tensor(frame_interval, dtype=torch.float32) / num_frames)
-    track_weights = target_confidences[:, None] * w_interval.to(pred_2d.device)
+    track_weights = target_confidences[:, None] * blocking_to(w_interval, pred_2d.device)
     return masked_l1_loss(
         pred_at_query, gt_tracks_2d, mask=track_weights, quantile=quantile, valid=target_visibles
     ) / max(h, w)
@@ -329,6 +330,7 @@ def estimate_rotation(src_edges, tgt_edges, weight) -> torch.Tensor:
     unchanged = torch.all(torch.all(src_edges == tgt_edges, dim=2), dim=1)
     S = torch.where(unchanged[:, None, None], 0.0, S)
     S = S + 1e-8 * eye
+    _spans.count("sync", 2)   # on the card, torch.linalg.svd reads its result's checks to the host twice
     U, sig, Vt = torch.linalg.svd(S)
     Wm = Vt.transpose(-1, -2)
     R = Wm @ U.transpose(-1, -2)

@@ -21,6 +21,8 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import blocking_to
+
 # production learning rates (frag_gs_v10.yaml:40-67); position-like params
 # additionally get the exponential schedule (yaml:68-90)
 DEFAULT_LRS: Dict[str, float] = {
@@ -116,8 +118,8 @@ def adam_update(cfg: OptimConfig, params: Dict[str, torch.Tensor],
     of `learning_rate(cfg, ...)` (an optax schedule read at `state.count`)."""
     count = state.count + 1
     dev = next(iter(params.values())).device
-    bc1 = (1.0 - torch.tensor(cfg.b1, dtype=torch.float32) ** count).to(dev)
-    bc2 = (1.0 - torch.tensor(cfg.b2, dtype=torch.float32) ** count).to(dev)
+    bc1 = blocking_to(1.0 - torch.tensor(cfg.b1, dtype=torch.float32) ** count, dev)
+    bc2 = blocking_to(1.0 - torch.tensor(cfg.b2, dtype=torch.float32) ** count, dev)
     new, mu, nu = {}, {}, {}
     for k, p in params.items():
         g = grads[k]
@@ -125,7 +127,7 @@ def adam_update(cfg: OptimConfig, params: Dict[str, torch.Tensor],
         nu[k] = (1 - cfg.b2) * (g * g) + cfg.b2 * state.nu[k]
         mu_hat = mu[k] / bc1
         nu_hat = nu[k] / bc2
-        step_size = -(learning_rate(cfg, k, state.count) if lr is None else lr).to(p.device)
+        step_size = -blocking_to(learning_rate(cfg, k, state.count) if lr is None else lr, p.device)
         new[k] = p + step_size * (mu_hat / (torch.sqrt(nu_hat) + cfg.eps))
     return new, AdamState(count=count, mu=mu, nu=nu)
 

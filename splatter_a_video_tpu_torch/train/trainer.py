@@ -28,12 +28,13 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import blocking_to, resolve_device
 from ..models.gaussians import GaussianScene
 from ..ops import projection as _proj
 from ..ops import quaternion as _quat
 from ..ops import rasterize as _raster
 from ..ops import sh as _sh
+from ..utils import spans as _spans
 from . import density as _density
 from . import losses as _losses
 from . import optim as _optim
@@ -150,8 +151,9 @@ def scene_render_inputs(scene: GaussianScene, t) -> Dict[str, torch.Tensor]:
 
 def _render_with_sinks(inp, extr, rcfg, extra, white_bg, uv_sink, abs_sink, depth_bg=2.0):
     """The training render, with the uv / |uv| gradient sinks injected."""
-    return _raster.rasterize(*project_for_training(inp, extr, rcfg, extra, white_bg, uv_sink, depth_bg),
-                             rcfg, abs_sink=abs_sink)
+    with _spans.span("step.project"):
+        proj = project_for_training(inp, extr, rcfg, extra, white_bg, uv_sink, depth_bg)
+    return _raster.rasterize(*proj, rcfg, abs_sink=abs_sink)
 
 
 def project_for_training(inp, extr, rcfg, extra, white_bg, uv_sink, depth_bg=2.0) -> _raster.Projected:
@@ -194,9 +196,13 @@ def compute_losses(cfg: TrainerConfig, rcfg, scene: GaussianScene, batch: Batch,
     `key`. `pos2_transform` maps the t2 positions into the t2 camera
     frame before they are blended as `track_gs` (camera refinement).
     """
-    sc = GaussianScene(params=params, aux=scene.aux, cfg=scene.cfg)
-    inp1 = scene_render_inputs(sc, batch.t1)
-    pos2 = sc.get_position(batch.t2)
+    # the trajectories, activations and SH of both instants, with their backward
+    with _spans.span("step.render_inputs"):
+        params = dict(zip(params, _spans.stage_in("step.render_inputs", *params.values())))
+        sc = GaussianScene(params=params, aux=scene.aux, cfg=scene.cfg)
+        inp1 = scene_render_inputs(sc, batch.t1)
+        *vals, pos2 = _spans.stage_out("step.render_inputs", *inp1.values(), sc.get_position(batch.t2))
+        inp1 = dict(zip(inp1, vals))
     if pos2_transform is not None:
         pos2 = pos2_transform(pos2)
     extra = {"track_gs": pos2}
@@ -210,20 +216,26 @@ def compute_losses(cfg: TrainerConfig, rcfg, scene: GaussianScene, batch: Batch,
     pred_depth = out.features["depth"][..., 0]
     track_map = out.features["track_gs"]
 
-    loss_rgb = _losses.rgb_loss(pred_rgb, batch.rgb1, cfg.lambda_dssim)
-    vis, _, conf = _losses.parse_tapir_track_info(batch.target_tracks[:, 2], batch.target_tracks[:, 3])
-    interval = float(abs(int(batch.t2) - int(batch.t1)))
-    loss_flow = _losses.tracking_loss(
-        track_map, batch.query_px, batch.target_tracks[:, :2], vis & batch.track_valid, conf,
-        interval, cfg.num_frames, cfg.height, cfg.width, quantile=cfg.track_quantile,
-    )
-    loss_depth = _losses.depth_loss_dpt(pred_depth, batch.depth1)
+    # L1 + D-SSIM, with its backward
+    with _spans.span("step.loss.rgb"):
+        loss_rgb = _spans.stage_out("step.loss.rgb", _losses.rgb_loss(
+            _spans.stage_in("step.loss.rgb", pred_rgb), batch.rgb1, cfg.lambda_dssim))
+    with _spans.span("step.loss.track"):
+        vis, _, conf = _losses.parse_tapir_track_info(batch.target_tracks[:, 2], batch.target_tracks[:, 3])
+        interval = float(abs(int(batch.t2) - int(batch.t1)))
+        loss_flow = _losses.tracking_loss(
+            track_map, batch.query_px, batch.target_tracks[:, :2], vis & batch.track_valid, conf,
+            interval, cfg.num_frames, cfg.height, cfg.width, quantile=cfg.track_quantile,
+        )
+    with _spans.span("step.loss.depth"):
+        loss_depth = _losses.depth_loss_dpt(pred_depth, batch.depth1)
     zero = pred_rgb.new_zeros(())
-    loss_arap = (
-        _losses.arap_loss(inp1["position"], pos2, arap_idx, k=cfg.arap_knn,
-                          sample_num=cfg.arap_sample_num, alive=sc.alive, key=key)
-        if cfg.arap_weight else zero
-    )
+    with _spans.span("step.loss.arap"):
+        loss_arap = (
+            _losses.arap_loss(inp1["position"], pos2, arap_idx, k=cfg.arap_knn,
+                              sample_num=cfg.arap_sample_num, alive=sc.alive, key=key)
+            if cfg.arap_weight else zero
+        )
     # zero-weight terms are skipped (0 * NaN would still poison the sum)
     loss = cfg.loss_rgb_weight * loss_rgb
     if cfg.loss_flow_weight:
@@ -234,11 +246,13 @@ def compute_losses(cfg: TrainerConfig, rcfg, scene: GaussianScene, batch: Batch,
         loss = loss + cfg.arap_weight * loss_arap
     extra_metrics = {}
     if cfg.mask_attr_weight:
-        loss_mask = torch.mean((out.features["mask_attribute"][..., 0] - batch.mask1) ** 2)
+        with _spans.span("step.loss.attr"):
+            loss_mask = torch.mean((out.features["mask_attribute"][..., 0] - batch.mask1) ** 2)
         loss = loss + cfg.mask_attr_weight * loss_mask
         extra_metrics["loss_mask_attr"] = loss_mask
     if cfg.dino_attr_weight:
-        loss_dino = torch.mean((out.features["dino_attribute"] - batch.dino1) ** 2)
+        with _spans.span("step.loss.attr"):
+            loss_dino = torch.mean((out.features["dino_attribute"] - batch.dino1) ** 2)
         loss = loss + cfg.dino_attr_weight * loss_dino
         extra_metrics["loss_dino_attr"] = loss_dino
     if cfg.fg_layer_weight:
@@ -273,7 +287,7 @@ def compute_losses(cfg: TrainerConfig, rcfg, scene: GaussianScene, batch: Batch,
 
 def viewspace_grad_norm(cfg: TrainerConfig, duv: torch.Tensor) -> torch.Tensor:
     """NDC-scale viewspace gradient norms: |duv * (W/2, H/2)|."""
-    scale = torch.tensor([cfg.width / 2.0, cfg.height / 2.0], dtype=duv.dtype, device=duv.device)
+    scale = blocking_to([cfg.width / 2.0, cfg.height / 2.0], duv.device, duv.dtype)
     return torch.linalg.vector_norm(duv * scale, dim=-1)
 
 
@@ -304,13 +318,16 @@ def make_train_step(cfg: TrainerConfig, extr: np.ndarray, frames: Optional[Frame
             cfg, rcfg, scene, batch, arap_idx, state.step, params, uv_sink, abs_sink, extr_t, key=sub,
         )
         inputs = [params[k] for k in names] + [uv_sink, abs_sink]
-        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+        with _spans.span("step.backward"):
+            grads = torch.autograd.grad(loss, inputs, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
         gdict = dict(zip(names, grads[: len(names)]))
         duv = grads[-2]
-        new_params, opt_state = _optim.adam_update(cfg.optim, scene.params, gdict, state.opt_state)
-        dstate = _density.accumulate_stats(state.densify_state, radius > 0, radius,
-                                           viewspace_grad_norm(cfg, duv))
+        with _spans.span("step.adam"):
+            new_params, opt_state = _optim.adam_update(cfg.optim, scene.params, gdict, state.opt_state)
+        with _spans.span("step.density_stats"):
+            dstate = _density.accumulate_stats(state.densify_state, radius > 0, radius,
+                                               viewspace_grad_norm(cfg, duv))
         new_scene = GaussianScene(params=new_params, aux=scene.aux, cfg=scene.cfg)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return TrainState(new_scene, opt_state, dstate, state.step + 1, key), metrics

@@ -185,7 +185,10 @@ def make_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--i_print", type=int, default=100)
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of a few "
-                        "steady-state train steps into this directory")
+                        "steady-state train steps into this directory; the "
+                        "port's spans record while it does, and "
+                        "fit_steps_A_B.spans.json beside it holds each "
+                        "span's host and stream ms and the counters, per step")
     p.add_argument("--i_img", type=int, default=500)
     p.add_argument("--i_weight", type=int, default=5000)
     p.add_argument("--i_cache", type=int, default=0,
