@@ -3,9 +3,14 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Builds the port's four CUDA kernels from `splatter_a_video_tpu_torch/csrc/`
+Builds the port's CUDA kernels from `splatter_a_video_tpu_torch/csrc/`
 and holds each against its plain PyTorch version at the flagship shapes
 (854x480, 131,000 Gaussians of which 100,000 alive, degree-3 SH):
+
+  ssim (phase 2b): the SSIM kernel pair at 3840x2160x3 and 854x480x3
+     against the band products (value and gradient within float32's sum
+     order, two calls `torch.equal`), timed beside its bound with ptxas's
+     registers, spills and shared memory (`ssim_phase`);
 
   render: K1 blend_forward and K2 expand_intersections with the mask /
      pos_poly_feat / dino render attributes (C = 20 blended channels, and
@@ -87,14 +92,16 @@ and holds each against its plain PyTorch version at the flagship shapes
      the saved scene at its full sizes and step counts, every section's
      numbers finite. Both write into a temporary directory.
 
-Every kernel check is `torch.equal` against the plain version.
+Every kernel check of K1-K4 is `torch.equal` against the plain version.
 
 The launch counters are set to 0 just before each of the main paths (the
 video render, the ten train steps, the fit, each side path's steps, the DP
 steps, the slab render, the wide train steps, the gs_2d fit, the gs_3d
 orbit, the production harness and the capability harness) and read just
 after; the kernel table's `launches` are the fit's,
-one per kernel and step. Each phase
+one per kernel and step. The SSIM pair's counts are read with K1-K4's: one
+of each of its kernels a training render that takes the rgb loss, none in
+the render-only runs, the appearance edit and the gs_2d fit. Each phase
 prints one line; any failure ends the run with a non-zero exit and no
 result line. The `[times]` lines and the kernel table carry each kernel's
 registers per thread, local (spill) bytes per thread and shared bytes per
@@ -199,6 +206,17 @@ E2E_CUTS = ("800 of 20,000 steps: the production schedule's first density events
             "(600, 700, 800); the opacity reset (3001), the saturation latch and the lr horizon (8000) lie beyond")
 E2E_EVENTS = 3          # density events in 800 steps of the production schedule (start 500, interval 100)
 CAP_SIZES = None        # the capability harness at its full sizes and step counts (torch_capability_480p.FULL)
+# phase 2b, the SSIM kernel pair at the rgb loss's shapes: the benchmark's frame, then the flagship's
+SSIM_SHAPES = ((2160, 3840, 3), (480, 854, 3))
+# port_bench/counts/step.py's count a pixel and channel: eight blurs (five forward, three backward) of
+# two passes of 11 multiply-adds, and ~60 operations of the map forward and backward
+SSIM_OPS = 8 * 2 * 11 * 2 + 60
+SSIM_BYTES = 12         # x and y read once, the gradient written once (float32)
+# float32 sums of the 11 taps in another order than the band products' (and the mean's over another
+# tree): the kernel's value and gradient within these of the plain version's, the gradient's
+# over its largest magnitude (each gradient sums three blurred terms up to ~1e3 times its size)
+SSIM_VALUE_RTOL = 1e-5
+SSIM_GRAD_TOL = 1e-5
 
 
 def log(phase: str, msg: str) -> None:
@@ -531,7 +549,6 @@ def fit_phase(args, dev, card: str):
 
     from splatter_a_video_tpu_torch.data import pairs, synthetic
     from splatter_a_video_tpu_torch.models import camera
-    from splatter_a_video_tpu_torch.ops import rasterize_gpu as rg
     from splatter_a_video_tpu_torch.train import fit, trainer
     from splatter_a_video_tpu_torch.utils import checkpoint
 
@@ -543,10 +560,9 @@ def fit_phase(args, dev, card: str):
     capacity = int(np.ceil(ALIVE * fcfg.capacity_factor / 128) * 128)
 
     watch = fit_watch(events)
-    for k in rg.LAUNCHES:
-        rg.LAUNCHES[k] = 0
+    reset_launches()
     state, hist = fit.fit_clip(clip, fcfg, tcfg, hooks=[watch], device=DEVICE)
-    fit_launches = dict(rg.LAUNCHES)
+    fit_launches = read_launches("launches", FIT_STEPS)
     log("fit", f"{W}x{H}, {FRAMES} frames, textured clip of {FIT_CLIP['num_blobs']} blobs of radius "
                f"{FIT_CLIP['blob_radius']}; cuts: {FIT_CUTS}; {FIT_STEPS} steps, launches {fit_launches}")
     require(watch.alive == ALIVE and watch.capacity == capacity,
@@ -977,16 +993,31 @@ def merge_rows(*parts):
     return out
 
 
+# the SSIM pair's launches (each of its two kernels) over each counted run,
+# under the key the kernel table gives them (`read_launches`)
+SSIM_LAUNCHES = {}
+
+
 def reset_launches():
     from splatter_a_video_tpu_torch.ops import rasterize_gpu as rg
+    from splatter_a_video_tpu_torch.ops import ssim
 
-    for k in rg.LAUNCHES:
-        rg.LAUNCHES[k] = 0
+    for counts in (rg.LAUNCHES, ssim.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
-def read_launches() -> dict:
+def read_launches(key: str, ssim_each: int) -> dict:
+    """K1-K4's launches since `reset_launches`. Requires each SSIM kernel to
+    have run `ssim_each` times (one of each a training render that takes
+    the rgb loss) and notes that count under `key`."""
     from splatter_a_video_tpu_torch.ops import rasterize_gpu as rg
+    from splatter_a_video_tpu_torch.ops import ssim
 
+    counts = dict(ssim.LAUNCHES)
+    require(counts == {"ssim_forward": ssim_each, "ssim_backward": ssim_each},
+            f"{key}: SSIM launch counts {counts}, expected {ssim_each} of each")
+    SSIM_LAUNCHES[key] = ssim_each
     return dict(rg.LAUNCHES)
 
 
@@ -1045,7 +1076,7 @@ def edit_phase(args, dev, card: str, scene, cpm: float) -> dict:
     edited = inference.optimize_appearance(scene, sel, target, cam, rcfg, t=EDIT_T, steps=EDIT_STEPS, device=DEVICE)
     torch.cuda.synchronize()
     app_ms = (time.perf_counter() - t0) * 1e3 / EDIT_STEPS
-    launches = read_launches()
+    launches = read_launches("edit_launches", 0)
     require(launches == {k: EDIT_STEPS for k in launches}, f"appearance launch counts {launches}")
     loss1 = mse(edited)
     require(loss1 < loss0, f"appearance loss did not fall: {loss0} -> {loss1}")
@@ -1122,7 +1153,7 @@ def pose_phase(args, dev, card: str, scene, clip) -> None:
                                                  lr=POSE_LR, device=DEVICE)
     torch.cuda.synchronize()
     it_ms = (time.perf_counter() - t0) * 1e3 / POSE_ITERS
-    launches = read_launches()
+    launches = read_launches("pose_launches", POSE_ITERS * POSE_FRAMES)
     require(launches == {k: POSE_ITERS * POSE_FRAMES for k in launches}, f"pose launch counts {launches}")
     # the error over the components an orthographic image sees: v_z moves no
     # pixel (only through the small coupling in exp's V), so Adam, which
@@ -1146,7 +1177,7 @@ def pose_phase(args, dev, card: str, scene, clip) -> None:
         reset_launches()
         state, hist = fit.fit_clip(clip, fcfg, tcfg, hooks=[hooks.CheckPointHook(every=every)], out_dir=tmp,
                                    device=DEVICE)
-        launches = read_launches()
+        launches = read_launches("joint_fit_launches", POSE_FIT_STEPS)
         require(launches == {k: POSE_FIT_STEPS for k in launches}, f"joint fit launch counts {launches}")
         for m in hist:
             require(all(np.isfinite(v) for v in m.values() if isinstance(v, (int, float))), f"joint fit {m}")
@@ -1226,7 +1257,7 @@ def atlas_phase(args, dev, card: str) -> None:
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         hist.append({k: float(v) for k, v in m.items()})
-    launches = read_launches()
+    launches = read_launches("atlas_launches", ATLAS_STEPS)
     require(launches == {k: ATLAS_STEPS for k in launches}, f"atlas launch counts {launches}")
     require(all(np.isfinite(v) for m in hist for v in m.values()), "atlas metrics not finite")
     require(hist[-1]["loss_rgb"] < hist[0]["loss_rgb"], "atlas loss_rgb did not fall")
@@ -1305,7 +1336,7 @@ def engine_phase(args, dev, card: str, cpm: float) -> dict:
     m = eng.train(num_steps=ENGINE_STEPS - 1)
     torch.cuda.synchronize()
     steady = (time.perf_counter() - t0) * 1e3 / (ENGINE_STEPS - 1)
-    launches = read_launches()
+    launches = read_launches("engine_launches", ENGINE_STEPS)
     require(launches == {k: ENGINE_STEPS for k in launches}, f"engine launch counts {launches}")
     require(all(np.isfinite(v) for v in m.values()) and int(eng.state.step) == ENGINE_STEPS, f"engine {m}")
     require(eng.active_sh_degree(ENGINE_STEPS - 1) == (ENGINE_STEPS - 1) // ENGINE_SH_INTERVAL, "SH degree")
@@ -1388,7 +1419,7 @@ def dp_phase(args, dev, card: str, scene) -> dict:
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         hist.append({k: float(v) for k, v in m.items()})
-    launches = read_launches()
+    launches = read_launches("dp_launches", DP_STEPS)
     require(launches == {k: DP_STEPS for k in launches}, f"DP launch counts {launches}")
     require(all(np.isfinite(v) for m in hist for v in m.values()), "DP metrics not finite")
     require(hist[-1]["loss_rgb"] < hist[0]["loss_rgb"], "DP loss_rgb did not fall")
@@ -1467,7 +1498,7 @@ def shard_phase(args, dev, card: str, scene) -> dict:
         reset_launches()
         out = slabs()
         torch.cuda.synchronize()
-        launches = read_launches()
+        launches = read_launches("shard_launches", 0)
         forward_only = {k: SHARD_SLABS if k in ("blend_forward", "expand_intersections") else 0 for k in launches}
         require(launches == forward_only, f"slab launch counts {launches}")
         ref = rasterize.render_gaussians(*inp, extr, rcfg)
@@ -1798,7 +1829,7 @@ def wide_phase(args, dev, card: str, cpm: float):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         history.append({k: float(v) for k, v in metrics.items()})
-    launches = read_launches()
+    launches = read_launches("wide_launches", WIDE_STEPS)
     require(launches == {k: WIDE_STEPS for k in launches}, f"wide train launch counts {launches}")
     for i, m in enumerate(history):
         require(all(np.isfinite(v) for v in m.values()), f"wide step {i}: metrics not finite {m}")
@@ -1829,7 +1860,7 @@ def wide_phase(args, dev, card: str, cpm: float):
         reset_launches()
         out = inference.render_frame(scene, TRAIN_T1, cam.extrinsic, rcfg, EXTRA, device=DEVICE)
         torch.cuda.synchronize()
-        r_launches = read_launches()
+        r_launches = read_launches("wide_render_launches", 0)
         widths = {k: (v.shape[-1] if v.dim() == 3 else 1) for k, v in out.features.items()}
         require(sum(widths.values()) == 49 and widths["dino_attribute"] == WIDE_DINO, f"render widths {widths}")
         require(r_launches == {k: int(k in ("blend_forward", "expand_intersections")) for k in r_launches},
@@ -1947,7 +1978,7 @@ def gs_2d_check(args, card: str, cpm: float):
     params, img, hist = fit(TUT_ITERS, TUT_LOG_EVERY)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = read_launches()
+    launches = read_launches("gs_2d_launches", 0)
     renders = TUT_ITERS + len(hist) + 1    # a blend a step, a PSNR render a log line, the final image
     want = {"blend_forward": renders, "expand_intersections": renders, "blend_backward": TUT_ITERS,
             "reduce_gaussians": TUT_ITERS}
@@ -2050,7 +2081,7 @@ def gs_3d_check(args, dev, card: str, cpm: float):
     outs = g3.render_orbit(P, F, S, DEVICE)
     torch.cuda.synchronize()
     frame_ms = (time.perf_counter() - t0) * 1e3 / F
-    launches = read_launches()
+    launches = read_launches("gs_3d_launches", 0)
     want = {"blend_forward": F, "expand_intersections": F, "blend_backward": 0, "reduce_gaussians": 0}
     require(launches == want, f"gs_3d launch counts {launches}, expected {want}")
     t0 = time.perf_counter()
@@ -2231,6 +2262,75 @@ def density_card_check(state, dcfg, seed: int) -> None:
                f"|card - CPU| {pos_err:.3g}; {g_s * 1e3:.1f} ms on the card, {c_s * 1e3:.1f} ms on the CPU")
 
 
+def ssim_phase(card: str) -> list:
+    """Phase 2b: the SSIM kernel pair (`csrc/ssim.cu`) at SSIM_SHAPES, the
+    rgb loss's case (the prediction needs a gradient, the frame not): the
+    value and gradient against `ssim_plain`'s band products (SSIM_VALUE_RTOL,
+    SSIM_GRAD_TOL), two calls `torch.equal`, one launch of each kernel a
+    call; then with CUDA events the pair (forward with the partials, then
+    backward), each kernel, the plain version's and the loss's `ssim` call
+    forward and backward, beside the bound (SSIM_OPS, SSIM_BYTES), and
+    ptxas's registers, spills and shared memory. Returns the kernel table's
+    rows, one a shape."""
+    import torch
+    from splatter_a_video_tpu_torch.ops import _build
+    from splatter_a_video_tpu_torch.ops import ssim as S
+
+    for line in _build.ptxas_report([_build.CSRC / "ssim.cu"]).splitlines():
+        if "Compiling entry" in line or "spill" in line or "registers" in line:
+            log("ssim", f"ptxas: {line.strip()}")
+    cpm = sleep_cycles_per_ms()
+    rows = []
+    for H_, W_, C_ in SSIM_SHAPES:
+        gen = torch.Generator(device=DEVICE).manual_seed(H_)
+        x = torch.rand((1, H_, W_, C_), generator=gen, device=DEVICE)
+        y = (x + 0.1 * torch.randn(x.shape, generator=gen, device=DEVICE)).clamp(0.0, 1.0)
+        xr = x.clone().requires_grad_(True)
+
+        def loss(fn):
+            v = fn(xr, y)
+            return v.detach(), torch.autograd.grad(v, xr)[0]
+
+        before = dict(S.LAUNCHES)
+        v, g = loss(S.ssim)
+        require(S.LAUNCHES["ssim_forward"] - before["ssim_forward"] == 1
+                and S.LAUNCHES["ssim_backward"] - before["ssim_backward"] == 1,
+                f"ssim at {W_}x{H_}x{C_}: launches {S.LAUNCHES} after {before}, not one of each")
+        v2, g2 = loss(S.ssim)
+        require(torch.equal(v, v2) and torch.equal(g, g2), f"ssim at {W_}x{H_}x{C_}: two calls differ")
+        vp, gp = loss(S.ssim_plain)
+        v_err = abs(float(v) - float(vp)) / abs(float(vp))
+        g_err = float((g - gp).abs().max() / gp.abs().max())
+        require(v_err <= SSIM_VALUE_RTOL and g_err <= SSIM_GRAD_TOL,
+                f"ssim at {W_}x{H_}x{C_}: value {float(v)!r} against {float(vp)!r} (relative {v_err:.3g}), "
+                f"gradient max |kernel - plain| / max |plain| {g_err:.3g}")
+        scale = torch.full((1,), 1.0 / x.numel(), device=DEVICE)
+        _, planes = S.ssim_forward(x, y, True, True, False)
+        pair_ms = cuda_ms(lambda: S.ssim_backward(S.ssim_forward(x, y, True, True, False)[1], x, y, scale,
+                                                  True, False), cpm)
+        fwd_ms = cuda_ms(lambda: S.ssim_forward(x, y, True, True, False), cpm)
+        bwd_ms = cuda_ms(lambda: S.ssim_backward(planes, x, y, scale, True, False), cpm)
+        call_ms = cuda_ms(lambda: loss(S.ssim), cpm)
+        plain_ms = cuda_ms(lambda: loss(S.ssim_plain), cpm)
+        n = x.numel()
+        ops, nbytes = n * SSIM_OPS, n * SSIM_BYTES
+        by = "operations" if ops / FP32_FLOPS_PER_S > nbytes / HBM_BYTES_PER_S else "bytes"
+        bound = max(ops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        fa, ba = S.kernel_attributes(False, True, False, C_), S.kernel_attributes(True, True, False, C_)
+        log("ssim", f"{W_}x{H_}x{C_}: pair {pair_ms:.4f} ms (forward {fwd_ms:.4f}, backward {bwd_ms:.4f}), bound "
+                    f"{bound:.4f} ms ({by}: {ops:.3g} flops, {nbytes:.3g} B); the loss's ssim call forward and "
+                    f"backward {call_ms:.4f} ms, plain {plain_ms:.4f} ms; value {float(v)!r} (plain "
+                    f"{float(vp)!r}, relative {v_err:.3g}), gradient max |kernel - plain| / max |plain| "
+                    f"{g_err:.3g}; two calls torch.equal; forward {resources(fa)}, backward {resources(ba)} "
+                    f"{card}")
+        rows.append({"shape": [H_, W_, C_], "ms": pair_ms, "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+                     "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                     "value_rel_err": v_err, "grad_err": g_err, "forward": fa, "backward": ba})
+        del x, y, xr, planes, g, g2, gp
+        torch.cuda.empty_cache()
+    return rows
+
+
 def e2e_phase(args, dev, card: str, cpm: float):
     """Phase 25: the production harness. `scripts/torch_e2e_480p.py` fits
     the flagship clip (E2E_ENV, cut by E2E_CUTS) and evaluates it through
@@ -2275,7 +2375,7 @@ def e2e_phase(args, dev, card: str, cpm: float):
             record, state, hist, clip = e2e.run(s, device=DEVICE, hooks=[first], write=True, root=tmp)
         torch.cuda.synchronize()
         e2e_s = time.perf_counter() - t0
-        launches = read_launches()
+        launches = read_launches("e2e_launches", s.steps)
         for line in out.getvalue().splitlines():
             if not line.startswith(("step ", "{")):
                 log("e2e", line)
@@ -2344,7 +2444,7 @@ def e2e_phase(args, dev, card: str, cpm: float):
                              report_path=None, sizes=CAP_SIZES)
         torch.cuda.synchronize()
         cap_s = time.perf_counter() - t0
-        cap_launches = read_launches()
+        cap_launches = read_launches("capability_launches", 0)
     for name in ("tracking", "edit", "interp", "layers"):
         require(name in report, f"capability section {name} missing")
     numbers = [v for sec in ("tracking", "edit", "interp", "layers") for v in report[sec].values()]
@@ -2392,6 +2492,9 @@ def main() -> int:
     for name in _build.KERNELS:
         _build.load(name)
     log("build", f"{', '.join(_build.KERNELS)} built and loaded in {secs:.1f} s")
+
+    # ---- 2b. the SSIM kernel pair against the band products ------------------
+    ssim_rows = ssim_phase(card)
 
     # ---- 3. flagship scene ------------------------------------------------
     t0 = time.perf_counter()
@@ -2494,10 +2597,9 @@ def main() -> int:
             require(n_t <= MAX_INTERSECTIONS, f"t={t} saturated: {n_t} > {MAX_INTERSECTIONS}")
             covered = (o.final_T < 0.5).float().mean().item()
             require(covered > 0.01, f"t={t}: only {covered:.3%} of pixels covered")
-        for k in rg.LAUNCHES:
-            rg.LAUNCHES[k] = 0
+        reset_launches()
         video = inference.render_video(scene, cam, rcfg, TIMES, extra_names=EXTRA, device=DEVICE)
-        launches = dict(rg.LAUNCHES)
+        launches = read_launches("render_launches", 0)
         forward_only = {k: (len(TIMES) if k in ("blend_forward", "expand_intersections") else 0)
                         for k in launches}   # rendering takes no gradient
         require(launches == forward_only, f"launch counts {launches}")
@@ -2688,8 +2790,7 @@ def main() -> int:
     batch = trainer.Batch(t1=TRAIN_T1, t2=TRAIN_T2, **{
         k: torch.from_numpy(v).to(dev) for k, v in train_batch_arrays(args.seed).items()})
     state0 = state
-    for k in rg.LAUNCHES:
-        rg.LAUNCHES[k] = 0
+    reset_launches()
     history, step_ms = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -2697,7 +2798,7 @@ def main() -> int:
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         history.append({k: float(v) for k, v in metrics.items()})
-    train_launches = dict(rg.LAUNCHES)
+    train_launches = read_launches("step_launches", TRAIN_STEPS)
     require(train_launches == {k: TRAIN_STEPS for k in train_launches}, f"train launch counts {train_launches}")
     for i, m in enumerate(history):
         require(all(np.isfinite(v) for v in m.values()), f"step {i}: metrics not finite {m}")
@@ -2872,6 +2973,11 @@ def main() -> int:
         k["gs_2d_launches"], k["gs_3d_launches"] = tut_fit_launches[k["name"]], tut_orbit_launches[k["name"]]
         # the production harness's fit and evaluation, and the capability harness (phase 25)
         k["e2e_launches"], k["capability_launches"] = e2e_launches[k["name"]], cap_launches[k["name"]]
+    # the SSIM pair replaces no TPU kernel: the XLA band products of the JAX package's ops/ssim.py;
+    # its launches are each of its kernels' over the counted runs, one a training render that takes
+    # the rgb loss (`read_launches`)
+    kernels.append({"name": "ssim", "route": "cuda", "source": "splatter_a_video_tpu_torch/csrc/ssim.cu",
+                    "replaces": None, "shapes": ssim_rows, **SSIM_LAUNCHES})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -3,14 +3,16 @@ density event against the CPU, on the card. CUDA kernels have no CPU mode:
 without a CUDA device these tests skip.
 On a GPU machine (without JAX, so without the JAX tests' conftest):
 `python -m pytest --noconftest tests/test_torch_kernels.py -q`.
-The kernels are built with --fmad=false and repeat the plain versions'
-arithmetic, so results are compared for equality."""
+The blend and binning kernels are built with --fmad=false and repeat the
+plain versions' arithmetic, so results are compared for equality. The SSIM
+pair sums its blurs in another order than the band products of its plain
+version, so it is held within float32 tolerances, and to itself exactly."""
 
 import numpy as np
 import pytest
 import torch
 
-from splatter_a_video_tpu_torch.ops import binning, projection, quaternion, rasterize_gpu
+from splatter_a_video_tpu_torch.ops import binning, projection, quaternion, rasterize_gpu, ssim
 
 # evaluated when each test runs, not at import
 pytestmark = pytest.mark.skipif(
@@ -391,3 +393,81 @@ def test_density_event_on_the_card_equals_the_cpu():
             assert torch.equal(g, v), k
     for k in co.mu:
         assert torch.equal(go.mu[k].cpu(), co.mu[k]) and torch.equal(go.nu[k].cpu(), co.nu[k]), k
+
+
+# (id, [N,] H, W, C, size_average, channel view): the benchmark's frame and the flagship's, the train
+# step's prediction (an rgb view of the C = 7 blend), batches per image, images the window overhangs,
+# and channels past a tile's eight
+SSIM_CASES = [
+    ("2160p", (2160, 3840, 3), True, False),
+    ("480p", (480, 854, 3), True, False),
+    ("2160p_view_of_7", (2160, 3840, 3), True, True),
+    ("batch", (2, 30, 41, 3), False, False),
+    ("batch_c2", (3, 20, 24, 2), False, False),
+    ("7x9", (7, 9, 3), True, False),
+    ("12x12", (12, 12, 3), True, False),
+    ("1x1", (1, 1, 3), True, False),
+    ("c9", (19, 50, 9), True, False),   # more channels than a tile holds: two chunks of them
+]
+# float32 sums in another order: each blurred value sums its 11 taps in order where the band products
+# sum in cuBLAS's, and the mean takes another tree, so values agree to a few ulps of the map and its
+# mean; each gradient is g/n times three blurred terms that reach ~1e3 times their sum where the
+# image is flat (dm/dE[xy] ~ 2 / C2), so it is held to 1e-5 of the largest gradient.
+SSIM_VALUE_RTOL, SSIM_VALUE_ATOL = 1e-5, 1e-6
+SSIM_GRAD_TOL = 1e-5
+
+
+# the inputs that need a gradient: each of the kernels' template instances; "none" is the engine's
+# eval SSIM, "x" the train step's
+SSIM_GRADS = {"none": (), "x": (0,), "y": (1,), "both": (0, 1)}
+
+
+@pytest.mark.parametrize("grads", list(SSIM_GRADS))
+@pytest.mark.parametrize("case", SSIM_CASES, ids=[c[0] for c in SSIM_CASES])
+def test_ssim_kernels_match_plain(case, grads):
+    """The SSIM kernel pair against the band products of `ssim_plain` on the
+    card: the value and the gradient of each input that needs one; two calls
+    equal; one forward launch a call, and one backward launch where an input
+    needs a gradient."""
+    name, shape, size_average, view = case
+    need = SSIM_GRADS[grads]
+    gen = torch.Generator(device="cuda").manual_seed(len(name))
+    if view:
+        base = torch.rand((*shape[:-1], 7), generator=gen, device="cuda").requires_grad_(0 in need)
+        a = base[..., :3]
+        assert not a.is_contiguous()
+    else:
+        base = a = torch.rand(shape, generator=gen, device="cuda").requires_grad_(0 in need)
+    b = (a.detach() + 0.1 * torch.randn(shape, generator=gen, device="cuda")).clamp(0.0, 1.0).requires_grad_(1 in need)
+    leaves = [t for i, t in enumerate((base, b)) if i in need]
+    n_img = shape[0] if len(shape) == 4 and not size_average else 1
+    up = torch.rand((n_img,), generator=gen, device="cuda") + 0.5
+    up = up[0] if size_average else up
+
+    def run(fn):
+        v = fn(a, b, size_average=size_average)
+        return (v.detach(), *(torch.autograd.grad(v, leaves, up) if leaves else ()))
+
+    before = dict(ssim.LAUNCHES)
+    got = run(ssim.ssim)
+    assert ssim.LAUNCHES == {"ssim_forward": before["ssim_forward"] + 1,
+                             "ssim_backward": before["ssim_backward"] + int(bool(need))}
+    assert len(got) == 1 + len(need)
+    again = run(ssim.ssim)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    want = run(ssim.ssim_plain)
+    torch.testing.assert_close(got[0], want[0], rtol=SSIM_VALUE_RTOL, atol=SSIM_VALUE_ATOL)
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.isfinite(g).all()
+        assert float((g - w).abs().max()) <= SSIM_GRAD_TOL * float(w.abs().max())
+    if view and 0 in need:   # the blend's other channels get no gradient
+        assert float(got[1][..., 3:].abs().max()) == 0.0
+
+
+def test_ssim_kernel_attributes():
+    """Every instance reports its registers, spills and shared bytes, and
+    none spills."""
+    for backward, nx, ny in [(0, 0, 0), (0, 1, 0), (0, 0, 1), (0, 1, 1), (1, 1, 0), (1, 0, 1), (1, 1, 1)]:
+        for C in (1, 3, 8, 17):
+            a = ssim.kernel_attributes(bool(backward), bool(nx), bool(ny), C)
+            assert 0 < a["regs"] <= 255 and a["local_bytes"] == 0 and a["shared_bytes"] > 0

@@ -77,6 +77,62 @@ def test_ssim_per_batch_values():
           jssim.ssim(a, b, size_average=False))
 
 
+@pytest.mark.parametrize("shape,size_average", [((7, 9, 3), True), ((12, 12, 3), True), ((2, 30, 41, 3), False)])
+def test_ssim_gradient_is_the_blurred_partials(shape, size_average):
+    """The backward of the card's SSIM kernel (`csrc/ssim.cu`), restated with
+    the plain band blur B: B is symmetric (B^T = B), so for the mean m over n
+    floats and an upstream gradient g,
+        dL/dx = g/n [B(dm/dmu_x) + 2x B(dm/dE[x^2]) + y B(dm/dE[xy])]
+    and the same for y, with dm/dE[y^2] = dm/dE[x^2]. Held to autograd of
+    the plain version at sizes the window overhangs; the CPU launches no
+    kernel. Tolerance: the three terms reach ~1e3 times the gradient where
+    the image is flat, so float32 rounding shows at 1e-6 of the largest."""
+    rng = np.random.RandomState(3)
+    a = rng.uniform(0, 1, shape).astype(np.float32)
+    b = np.clip(a + rng.randn(*shape).astype(np.float32) * 0.1, 0, 1)
+    x, y = (torch.from_numpy(v).requires_grad_(True) for v in (a, b))
+    up = torch.from_numpy(rng.uniform(0.5, 1.5, shape[0] if not size_average else ()).astype(np.float32))
+    launches = dict(tssim.LAUNCHES)
+    gx, gy = torch.autograd.grad(tssim.ssim(x, y, size_average=size_average), (x, y), up)
+    assert tssim.LAUNCHES == launches   # no kernel ran
+
+    X, Y = (t.detach().reshape((-1, *shape[-3:])) for t in (x, y))
+    blur = lambda t: tssim._blur(t, 11)
+    mu1, mu2 = blur(X), blur(Y)
+    a1 = 2 * mu1 * mu2 + tssim.C1
+    a2 = 2 * (blur(X * Y) - mu1 * mu2) + tssim.C2
+    b1 = mu1 * mu1 + mu2 * mu2 + tssim.C1
+    b2 = (blur(X * X) - mu1 * mu1) + (blur(Y * Y) - mu2 * mu2) + tssim.C2
+    m = a1 * a2 / (b1 * b2)
+    d_sq = -m / b2                               # dm/dE[x^2] = dm/dE[y^2]
+    d_xy = 2 * a1 / (b1 * b2)                    # dm/dE[xy]
+    d_mu1 = 2 * mu2 * (a2 - a1) / (b1 * b2) + 2 * mu1 * m * (1 / b2 - 1 / b1)
+    d_mu2 = 2 * mu1 * (a2 - a1) / (b1 * b2) + 2 * mu2 * m * (1 / b2 - 1 / b1)
+    n = X.numel() if size_average else X[0].numel()
+    s = (up / n).reshape(-1, 1, 1, 1)
+    want_x = s * (blur(d_mu1) + 2 * X * blur(d_sq) + Y * blur(d_xy))
+    want_y = s * (blur(d_mu2) + 2 * Y * blur(d_sq) + X * blur(d_xy))
+    for got, want in ((gx, want_x), (gy, want_y)):
+        scale = float(want.abs().max())
+        close(got.reshape(want.shape), want, rtol=1e-4, atol=1e-5 * scale)
+
+
+def test_ssim_on_the_cpu_is_the_plain_version_and_other_devices_raise():
+    """CPU tensors take the band products, exactly, launching nothing; a
+    tensor that is on neither the CPU nor a CUDA device raises, it does not
+    fall back."""
+    rng = np.random.RandomState(4)
+    a, b = (torch.from_numpy(rng.uniform(0, 1, (9, 7, 3)).astype(np.float32)) for _ in range(2))
+    launches = dict(tssim.LAUNCHES)
+    assert torch.equal(tssim.ssim(a, b), tssim.ssim_plain(a, b))
+    assert torch.equal(tssim.ssim(a, b, size_average=False), tssim.ssim_plain(a, b, size_average=False))
+    assert tssim.LAUNCHES == launches   # no kernel ran
+    with pytest.raises(ValueError):
+        tssim.ssim(a.to("meta"), b.to("meta"))
+    with pytest.raises(ValueError):
+        tssim.ssim(a, b.to("meta"))
+
+
 # ---- kNN --------------------------------------------------------------------
 
 
