@@ -1,8 +1,14 @@
 """The benchmark's data, found by name: `BENCHMARK.json` at the repo's
 root, `configs/<configuration>.json`, `traffic/<mix>.json`,
-`limits/<configuration>.json` and `metrics/<metric>.py` under this folder.
-A later cell, configuration, mix or per-layer metric is new files and new
-entries, never an edit of what is here.
+`limits/<configuration>.json`, `metrics/<metric>.py` and
+`entries/<entry>.py` under this folder.
+
+A configuration may name its `entry`, the program's entry point that its
+cells drive (`fit` where it names none): `entries/<entry>.py` holds
+`run(...)`, which sets up, measures, checks and traces one run, and the
+keys its traffic files and limits must hold (`TRAFFIC_KEYS`,
+`LIMIT_KEYS`). A later cell, configuration, mix, per-layer metric or entry
+point is new files and new entries, never an edit of what is here.
 """
 
 from __future__ import annotations
@@ -50,6 +56,28 @@ def limits(name: str, here: str = HERE) -> dict:
     return _load_json("limits", name, here)
 
 
+def entry_name(cfg: dict) -> str:
+    """The entry point a configuration's cells drive."""
+    return cfg.get("entry", "fit")
+
+
+def _module(kind: str, prefix: str, name: str, here: str):
+    if not NAME.match(name):
+        raise ValueError(f"bad {kind} name {name!r}")
+    path = os.path.join(here, kind, name + ".py")
+    if not os.path.isfile(path):
+        raise KeyError(f"no {path}")
+    spec = importlib.util.spec_from_file_location(f"{prefix}_{name.replace('.', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def entry(name: str, here: str = HERE):
+    """The module `entries/<name>.py`, which holds `run(...)`."""
+    return _module("entries", "port_bench_entry", name, here)
+
+
 def metrics_for(manifest: dict, workload: str, section: str) -> List[dict]:
     """The metrics of `section` (`end_to_end` or `per_layer`) that this cell
     reports: those without a `workloads` key, and those that list it."""
@@ -58,13 +86,7 @@ def metrics_for(manifest: dict, workload: str, section: str) -> List[dict]:
 
 def reader(name: str, here: str = HERE):
     """The module `metrics/<name>.py`, which holds `read(ctx)`."""
-    if not NAME.match(name):
-        raise ValueError(f"bad metric name {name!r}")
-    path = os.path.join(here, "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location(f"port_bench_metric_{name.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return _module("metrics", "port_bench_metric", name, here)
 
 
 def readers(manifest: dict, workload: str, here: str = HERE) -> Dict[str, object]:

@@ -6,36 +6,47 @@ from the root of a checkout, on a machine with an NVIDIA GPU (it exits with
 code 2, and prints no result, without one or with fewer than the cell asks
 for). A cell (`BENCHMARK.json`'s `workloads`) names a configuration
 (`port_bench/configs/<name>.json`) and a traffic mix
-(`port_bench/traffic/<name>.json`). The run:
+(`port_bench/traffic/<name>.json`). The configuration names the program's
+entry point that the cell drives, its `entry` (`fit` where it names none),
+and the run hands the cell to `port_bench/entries/<entry>.py`, found by
+name (`manifest.py`), whose `run` sets up, measures the window, checks the
+window's answers against the plain reference (`reference/`) and, with
+`--trace 1`, traces part of the window. The keys of the traffic file and of
+the limits (`port_bench/limits/<configuration>.json`) belong to the entry.
+A new entry point is new files and entries only: `entries/<entry>.py`, its
+configuration, traffic and limits, its cells and metrics in
+`BENCHMARK.json`.
 
-  1. makes the cell's clip on the GPU from `--seed` (`clip.py`) and hands it
-     to the program as a `VideoFlowData`;
-  2. calls the program's `train.fit.fit_clip` with the configuration; the
-     fit lifts the tracks, builds the scene and trains, and the first
-     `warm_steps` steps (the first density event among them) are set-up;
-  3. measures the steps of the next `--seconds` seconds (a synchronize at
-     both ends) and stops the fit;
-  4. reads the device's peak memory, frees the program's state, and runs
-     the plain reference (`reference/`: the initial scene from the clip,
-     the first train steps, the first density event) to decide `correct`
-     (`compare.py`).
+  * `fit` (`harness.py`): the program's `train.fit.fit_clip` on the cell's
+    clip (`clip.py`, made on the GPU from `--seed`); the first `warm_steps`
+    steps (the first density event among them) are set-up, the window
+    measures the steps of the next `--seconds` seconds; the reference
+    follows the initial scene, the first train steps and the first density
+    event (`compare.py`). Reports `fit_ms_per_step` and `setup_s`.
+  * `tracks` (`entries/tracks.py`): the program's `nets.tapir.track_points`
+    on the clip's queries in `compute_tracks`' order, `queries_per_call` a
+    call; `warm_calls` calls are set-up, the window runs whole calls for
+    `--seconds` seconds; the reference (`reference/tapir.py`) tracks a
+    sample of the window's queries drawn from the seed. Reports
+    `preprocess_ms_per_frame` and `setup_s`.
 
-With `--trace 1` it also traces `trace_steps` steps of the window with
+The run reports the end-to-end metrics that `BENCHMARK.json` gives the cell
+(`manifest.metrics_for`), and refuses to print a result where the entry
+gives fewer. With `--trace 1` it traces part of the window with
 `torch.profiler` into a Chrome trace under `$TMPDIR` (tens of MB, deleted
-once read) and reports the per-layer metrics (`metrics/<name>.py`) in
-place of the end-to-end ones.
+once read) and reports the cell's per-layer metrics (`metrics/<name>.py`)
+in place of the end-to-end ones.
 
 Standard error carries, in order: the card's name and power limit
-(`[card]`), each set-up phase as it ends (`[phase] clip_s ...`, `lift_s`,
-`scene_s`, `first_step_at`), the program's own lines (density events and
-the saturation latch), one line per density event (`[event] step ...`),
-the window (`[window] steps ... fit_ms_per_step ...`), the set-up and scene
-sizes (`[setup] ...`), all phase times and the reference's time
-(`[phases] ...`), then, as its last lines, each number compared beside its
-limit (`[check] name value <= limit ok|FAIL`). The last line of standard
-output is the result: `correct`, `attempted` (the window's steps),
-`failed`, `metrics`, `device`, with `--trace 1` also `breakdown`, and last
-`check`, the numbers compared, each as [value, limit].
+(`[card]`), each set-up phase as it ends (`[phase] ...`), the program's own
+lines, the entry's summary (the fit: `[event]` per density event,
+`[window]`, `[setup]`; the tracks: `[window]`, `[setup]`), all phase times
+and the reference's time (`[phases] ...`), then, as its last lines, each
+number compared beside its limit (`[check] name value <= limit ok|FAIL`).
+The last line of standard output is the result: `correct`, `attempted` (the
+window's steps or queries), `failed`, `metrics`, `device`, with `--trace 1`
+also `breakdown`, and last `check`, the numbers compared, each as
+[value, limit].
 
 Build and kernel caches stay inside the checkout: the program builds its
 kernels into `splatter_a_video_tpu_torch/_build/`, and any Triton or
@@ -74,6 +85,41 @@ def _card() -> str:
         return "unknown"
 
 
+def result(man: dict, workload: str, seed: int, seconds: float, trace: bool, device, t_start: float,
+           here: str = HERE):
+    """Run one cell through its entry point (`manifest.entry`): the result
+    line's fields and the numbers compared. No look for a card here."""
+    from port_bench import manifest as mf
+
+    wl = mf.cell(man, workload)
+    cfg = mf.config(wl["config"], here)
+    ent = mf.entry(mf.entry_name(cfg), here)
+    tr, lim = mf.traffic(wl["traffic"], here), mf.limits(wl["config"], here)
+    readers = mf.readers(man, workload, here) if trace else {}
+    out = ent.run(cfg, tr, lim, seed, seconds, trace, device, t_start, readers)
+    if trace:
+        units = {m["name"]: m["unit"] for m in man["per_layer"]}
+        metrics = {k: {"value": v, "unit": units[k]} for k, v in out["per_layer"].items()}
+    else:
+        e2e = mf.metrics_for(man, workload, "end_to_end")
+        missing = [m["name"] for m in e2e if m["name"] not in out["metrics"]]
+        if missing:
+            raise RuntimeError(f"the {mf.entry_name(cfg)} entry gives no {', '.join(missing)}")
+        metrics = {m["name"]: {"value": out["metrics"][m["name"]], "unit": m["unit"]} for m in e2e}
+    import torch
+
+    dev = torch.device(device)
+    kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    res = {"correct": all(c["ok"] for c in out["check"]), "attempted": out["attempted"],
+           "failed": out.get("failed", 0), "metrics": metrics,
+           "device": {"platform": "gpu" if dev.type == "cuda" else "cpu", "kind": kind, "count": 1,
+                      "memory_peak_bytes": int(out["memory_peak_bytes"])}}
+    if trace:
+        res["device"]["busy_s"], res["device"]["window_s"] = out["busy_s"], out["window_s"]
+        res["breakdown"] = out["breakdown"]
+    return res, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
@@ -100,50 +146,23 @@ def main(argv=None) -> int:
         print(f"port_bench: the cell needs {wl['chips']} CUDA device(s); found "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}", file=sys.stderr)
         return 2
-    cfg = mf.config(wl["config"])
-    tr = mf.traffic(wl["traffic"])
-    lim = mf.limits(wl["config"])
-    readers = mf.readers(man, args.workload) if args.trace else {}
     card = _card()
     print(f"[card] {card}", file=sys.stderr, flush=True)
 
-    from port_bench import harness
-
-    out = harness.run_cell(cfg, tr, lim, args.seed, args.seconds, bool(args.trace), "cuda", T_START,
-                           readers, list(readers))
+    res, out = result(man, args.workload, args.seed, args.seconds, bool(args.trace), "cuda", T_START)
     bad = forbidden_modules()
     if bad:
         print(f"port_bench: the run loaded {', '.join(bad)}", file=sys.stderr)
         return 3
 
-    for e in out["events"]:
-        print("[event] " + " ".join(f"{k} {v}" for k, v in e.items()), file=sys.stderr)
-    print(f"[window] steps {out['steps']} seconds {args.seconds} fit_ms_per_step {out['fit_ms_per_step']!r}",
-          file=sys.stderr)
-    print(f"[setup] setup_s {out['setup_s']!r} capacity {out['capacity']} alive_at_start {out['alive_at_start']}"
-          f" memory_peak_bytes {out['memory_peak_bytes']}", file=sys.stderr)
-    correct = all(c["ok"] for c in out["check"])
-    if args.trace:
-        units = {m["name"]: m["unit"] for m in man["per_layer"]}
-        metrics = {k: {"value": v, "unit": units[k]} for k, v in out["per_layer"].items()}
-    else:
-        units = {m["name"]: m["unit"] for m in man["end_to_end"]}
-        metrics = {k: {"value": out[k], "unit": units[k]} for k in ("fit_ms_per_step", "setup_s")
-                   if k in units}
-    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1,
-              "memory_peak_bytes": int(out["memory_peak_bytes"])}
-    result = {"correct": correct, "attempted": out["steps"], "failed": 0, "metrics": metrics, "device": device,
-              "card": card}
-    if args.trace:
-        device["busy_s"], device["window_s"] = out["busy_s"], out["window_s"]
-        result["breakdown"] = out["breakdown"]
+    res["card"] = card
     print("[phases] " + " ".join(f"{k} {v!r}" for k, v in out["phases"].items()), file=sys.stderr)
     for c in out["check"]:
         print(f"[check] {c['name']} {c['value']!r} <= {c['limit']!r} {'ok' if c['ok'] else 'FAIL'}",
               file=sys.stderr)
-    result["check"] = {c["name"]: [c["value"], c["limit"]] for c in out["check"]}
+    res["check"] = {c["name"]: [c["value"], c["limit"]] for c in out["check"]}
     sys.stderr.flush()
-    print(json.dumps(result), flush=True)
+    print(json.dumps(res), flush=True)
     return 0
 
 

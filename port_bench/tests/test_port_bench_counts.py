@@ -3,7 +3,7 @@ the reference blend's slot-pixel tests against a hand-counted tile."""
 
 import torch
 
-from port_bench.counts import blend, peaks, step
+from port_bench.counts import blend, peaks, step, tapir
 from port_bench.reference import plain
 
 
@@ -59,3 +59,41 @@ def test_walked_tests_of_a_tile_that_stops_early():
         want += feats[k] * a * T
         T = T * (1 - a)
     torch.testing.assert_close(img[8, 8], want + T, rtol=1e-5, atol=1e-6)
+
+
+TINY_TAPIR = dict(channels_per_group=[2, 4, 4, 4], blocks_per_group=[1, 1, 1, 1], strides=[1, 2, 2, 1],
+                  initial_resolution=[16, 16], highres_dim=4, lowres_dim=4, extra_convs=1, mixer_hidden_dim=2,
+                  num_mixer_blocks=1, num_pips_iter=1, pyramid_level=1)
+
+
+def test_tapir_layers_by_hand():
+    # a 3x3 convolution from 2 to 4 channels onto 5x6: 30 outputs x 4 x 2 x 9 multiply-adds
+    assert tapir.conv(3, 2, 4, 5, 6) == 2 * 30 * 4 * 2 * 9
+    assert tapir.linear(3, 5) == 30
+    # a depthwise kernel of 3 taps onto 8 channels: 24 multiply-adds a position
+    assert tapir.depthwise(3, 8) == 48
+    assert tapir.grid_sizes(TINY_TAPIR) == ((4, 4), (2, 2))
+
+
+def test_tapir_grid_ops_by_hand():
+    """16x16 in: the 7x7 stem to 8x8 x 2; one block a group (a 1x1 projection,
+    then two 3x3s) at 8x8, 4x4, 2x2, 2x2; one ExtraConv 4 -> 16 -> 4 at 2x2."""
+    stem = 2 * 64 * 2 * 3 * 49
+    g0 = 2 * 64 * (2 * 2 + 9 * 2 * 2 + 9 * 2 * 2)
+    g1 = 2 * 16 * (2 * 4 + 9 * 2 * 4 + 9 * 4 * 4)
+    g2 = 2 * 4 * (4 * 4 + 9 * 4 * 4 + 9 * 4 * 4)
+    g3 = 2 * 4 * (4 * 4 + 9 * 4 * 4 + 9 * 4 * 4)
+    extra = 2 * 4 * (9 * 4 * 16 + 9 * 16 * 4)
+    assert tapir.grid_ops(TINY_TAPIR, 3) == 3 * (stem + g0 + g1 + g2 + g3 + extra)
+
+
+def test_tapir_query_ops_by_hand():
+    """A query's frame: the cost volume over the 2x2 low-res grid, the head's
+    three convolutions and two linears; one iteration: 49 samples and
+    correlations at three levels of 4 channels, a mixer of width 2 over
+    12 + 147 inputs, one block."""
+    init = 2 * 4 * 4 + 2 * 4 * 9 * 16 + 2 * 4 * 9 * 16 + 2 * 1 * 9 * 16 * 32 + 2 * 32 * 16 + 2 * 16 * 2
+    sample = 3 * 49 * 10 * 4
+    block = 2 * 3 * 8 * 2 + 8 + 2 * 2 * 8 * 2
+    mix = 2 * (12 + 147) * 2 + block + 2 * 2 * 12
+    assert tapir.query_ops(TINY_TAPIR, 5) == 5 * (init + sample + mix)

@@ -29,8 +29,11 @@ def _modules_after(code: str):
 def test_the_harness_and_the_program_load_no_jax():
     mods = _modules_after(
         "import port_bench.run, port_bench.harness, port_bench.compare, port_bench.trace, port_bench.clip; "
+        "import port_bench.control_tracks, port_bench.counts.tapir; "
         "from port_bench import manifest as m; man = m.load_manifest(); "
         "[m.readers(man, w['name']) for w in man['workloads']]; "
+        "[m.entry(m.entry_name(m.config(w['config']))) for w in man['workloads']]; "
+        "import splatter_a_video_tpu_torch.nets.tapir; "
         "import splatter_a_video_tpu_torch.train.fit, splatter_a_video_tpu_torch.data.video_flow")
     assert "splatter_a_video_tpu_torch" in mods
     assert not mods & {"jax", "jaxlib", "flax", "splatter_a_video_tpu"}
@@ -38,5 +41,5 @@ def test_the_harness_and_the_program_load_no_jax():
 
 def test_the_reference_loads_nothing_of_the_program():
     mods = _modules_after("import port_bench.reference.follow, port_bench.reference.plain, "
-                          "port_bench.reference.prng")
+                          "port_bench.reference.prng, port_bench.reference.tapir, port_bench.counts.tapir")
     assert not mods & {"jax", "jaxlib", "flax", "splatter_a_video_tpu", "splatter_a_video_tpu_torch"}
