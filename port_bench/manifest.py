@@ -8,7 +8,15 @@ cells drive (`fit` where it names none): `entries/<entry>.py` holds
 `run(...)`, which sets up, measures, checks and traces one run, and the
 keys its traffic files and limits must hold (`TRAFFIC_KEYS`,
 `LIMIT_KEYS`). A later cell, configuration, mix, per-layer metric or entry
-point is new files and new entries, never an edit of what is here.
+point is new files and new entries, never an edit of what is here. A new
+entry point brings `entries/<entry>.py`; its configuration, traffic and
+limits; its plain reference under `reference/` and its operation counts
+under `counts/`; its readers under `metrics/`; its CPU case
+`tests/tiny_<entry>.py` (`config(name)` and `TRAFFIC`, which the
+benchmark's own tests find by the entry's name); and its configuration,
+cells and metrics in `BENCHMARK.json`. A new cell that reports an
+end-to-end metric that is already there appends its name to that metric's
+`workloads`.
 """
 
 from __future__ import annotations

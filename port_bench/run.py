@@ -14,8 +14,11 @@ window's answers against the plain reference (`reference/`) and, with
 `--trace 1`, traces part of the window. The keys of the traffic file and of
 the limits (`port_bench/limits/<configuration>.json`) belong to the entry.
 A new entry point is new files and entries only: `entries/<entry>.py`, its
-configuration, traffic and limits, its cells and metrics in
-`BENCHMARK.json`.
+configuration, traffic and limits, its reference and counts, its readers,
+its CPU case `tests/tiny_<entry>.py`, and its cells and metrics in
+`BENCHMARK.json` (`manifest.py` lists them); a new cell that reports an
+end-to-end metric that is already there appends its name to that metric's
+`workloads`.
 
   * `fit` (`harness.py`): the program's `train.fit.fit_clip` on the cell's
     clip (`clip.py`, made on the GPU from `--seed`); the first `warm_steps`

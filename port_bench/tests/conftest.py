@@ -1,6 +1,8 @@
 import pytest
 import torch
 
+pytest.register_assert_rewrite("port_bench.tests.checks")
+
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "card: needs an NVIDIA GPU; skips without one (decided inside the test)")

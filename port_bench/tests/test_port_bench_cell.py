@@ -3,16 +3,14 @@ kernels), held to the reference with the committed limits; then the same run
 with the timed path broken underneath, once for each fault a training cell
 can have on one chip, which has to come out not correct."""
 
-import os
-import subprocess
-import sys
 import time
 
 import pytest
 import torch
 
 from port_bench import harness, manifest
-from port_bench.tests.tiny import TINY_TRAFFIC, tiny_config
+from port_bench.tests import tiny_fit
+from port_bench.tests.checks import check_whole_run_loads_no_jax, entries
 
 SEED = 2 ** 31 + 12345          # past 32 signed bits, as a run's seed may be
 
@@ -26,7 +24,7 @@ def one_thread():
 
 
 def _run(name="flagship_2160p"):
-    out = harness.run_cell(tiny_config(name), TINY_TRAFFIC, manifest.limits(name), SEED, 0.5, False, "cpu",
+    out = harness.run_cell(tiny_fit.config(name), tiny_fit.TRAFFIC, manifest.limits(name), SEED, 0.5, False, "cpu",
                            time.perf_counter(), {}, [])
     return {c["name"]: c for c in out["check"]}, out
 
@@ -73,14 +71,7 @@ def test_an_answer_altered_where_made_fails(monkeypatch):
     assert not checks["grad_gap"]["ok"]
 
 
-def test_a_whole_tiny_run_loads_no_jax():
-    code = ("import sys, time, torch; torch.set_num_threads(1); sys.path.insert(0, %r); "
-            "from port_bench import harness, manifest, run; from port_bench.tests.tiny import *; "
-            "out = harness.run_cell(tiny_config(), TINY_TRAFFIC, manifest.limits('flagship_2160p'), 5, 0.2, False, "
-            "'cpu', time.perf_counter(), {}, []); "
-            "print(all(c['ok'] for c in out['check']), run.forbidden_modules())") % manifest.ROOT
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=600,
-                         cwd=manifest.ROOT)
-    assert res.returncode == 0, res.stderr[-2000:]
-    assert res.stdout.strip().splitlines()[-1] == "True []"
+@pytest.mark.parametrize("entry", entries(manifest.load_manifest(), manifest.HERE))
+def test_a_whole_tiny_run_loads_no_jax(entry, tmp_path):
+    """Each entry that a cell drives, its CPU case run whole in a fresh process."""
+    check_whole_run_loads_no_jax(manifest.load_manifest(), entry, manifest.HERE, str(tmp_path))

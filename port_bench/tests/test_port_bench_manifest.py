@@ -10,14 +10,11 @@ import shutil
 import pytest
 
 from port_bench import manifest
+from port_bench.tests import checks
 
 ROOT = manifest.ROOT
 MAN = manifest.load_manifest()
-NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
-UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
-LINE = re.compile(r"^[^\n\t]{1,200}$")
 TOP_KEYS = {"command", "paths", "run_seconds", "configs", "workloads", "end_to_end", "per_layer"}
-WIDTHS = re.compile(r"(hidden|intermediate|latent|state|projection|head|expansion|_dim$|_rank$|experts_per_tok)")
 
 
 def test_top_level_keys_and_sizes():
@@ -29,7 +26,7 @@ def test_top_level_keys_and_sizes():
         assert re.match(r"^[A-Za-z0-9_.\-/]{1,200}$", p) and not p.startswith("/") and ".." not in p.split("/")
         assert os.path.isdir(os.path.join(ROOT, p))
     cmd = MAN["command"]
-    assert 1 <= len(cmd) <= 32 and all(LINE.match(w) for w in cmd)
+    assert 1 <= len(cmd) <= 32 and all(checks.LINE.match(w) for w in cmd)
     for w in cmd[1:]:
         if "/" in w or w.endswith(".py"):
             assert any(w == p or w.startswith(p + "/") for p in MAN["paths"]), w
@@ -39,78 +36,26 @@ def test_top_level_keys_and_sizes():
 def test_names_unique_and_well_formed(section):
     names = [e["name"] for e in MAN[section]]
     assert len(names) == len(set(names))
-    assert all(NAME.match(n) for n in names)
+    assert all(checks.NAME.match(n) for n in names)
 
 
 def test_configs():
-    assert 1 <= len(MAN["configs"]) <= 24
-    files = set()
-    for c in MAN["configs"]:
-        assert set(c) == {"name", "source", "file", "reduced", "why"} and LINE.match(c["why"])
-        assert LINE.match(c["source"]) and c["source"].startswith("https://")
-        assert any(c["file"].startswith(p + "/") for p in MAN["paths"])
-        assert c["file"] not in files
-        files.add(c["file"])
-        with open(os.path.join(ROOT, c["file"])) as f:
-            body = json.load(f)
-        assert body["source"] == c["source"]
-        assert body["reduced"] == c["reduced"] and len(c["reduced"]) <= 16
-        for k in c["reduced"]:
-            assert NAME.match(k) and k in body and not WIDTHS.search(k)
-        assert manifest.config(c["name"]) == body
-        lim = set(manifest.limits(c["name"]))
-        assert lim >= set(manifest.entry(manifest.entry_name(body)).LIMIT_KEYS)
-        if manifest.entry_name(body) == "fit":
-            assert lim >= {"loss_gap", "grad_gap", "change_gap"}
-        assert any(w["config"] == c["name"] for w in MAN["workloads"])
+    checks.check_configs(MAN, manifest.HERE)
 
 
 def test_workloads():
-    wls = MAN["workloads"]
-    assert 1 <= len(wls) <= 24
-    assert len({(w["config"], w["traffic"]) for w in wls}) == len(wls)
-    assert sum(w["chips"] == 4 for w in wls) <= max(1, len(wls) // 4)
-    configs = {c["name"] for c in MAN["configs"]}
-    for w in wls:
-        assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] in (1, 4) and w["config"] in configs and NAME.match(w["traffic"])
-        assert LINE.match(w["why"])
-        tr = manifest.traffic(w["traffic"])
-        entry = manifest.entry_name(manifest.config(w["config"]))
-        assert set(manifest.entry(entry).TRAFFIC_KEYS) <= set(tr)
-        if entry == "fit":
-            assert {"warm_steps", "check_steps", "trace_skip", "trace_steps"} <= set(tr)
+    checks.check_workloads(MAN, manifest.HERE)
 
 
 def test_metrics():
-    e2e = {m["name"]: m for m in MAN["end_to_end"]}
-    assert "setup_s" in e2e and 1 <= len(e2e) <= 16 and 1 <= len(MAN["per_layer"]) <= 128
-    for m in MAN["end_to_end"]:
-        assert set(m) <= {"name", "unit", "better", "bound", "source", "workloads"}
-        assert m["source"] in ("host_clock", "device_trace") and m["better"] in ("lower", "higher")
-        assert UNIT.match(m["unit"]) and 0.01 <= m["bound"] <= 0.25
-    layers = {}
-    for m in MAN["per_layer"]:
-        assert set(m) <= {"name", "unit", "better", "source", "layer", "moves", "workloads"}
-        assert UNIT.match(m["unit"]) and LINE.match(m["layer"]) and m["moves"] in e2e
-        assert m["source"] in ("device_trace", "program_span", "program_counter", "host_clock")
-        assert m["better"] in ("lower", "higher")
-        for w in m.get("workloads", []):
-            assert w in {x["name"] for x in MAN["workloads"]}
-        if m["name"].endswith("_roofline") or "_roofline." in m["name"] or "mfu" in m["name"]:
-            assert m["unit"] == "%"
-        assert callable(manifest.reader(m["name"]).read)
-        layers.setdefault(m["layer"], []).append(m["name"])
+    checks.check_metrics(MAN, manifest.HERE)
     perf = open(os.path.join(ROOT, "PERF.md")).read()
-    for layer in layers:
+    for layer in {m["layer"] for m in MAN["per_layer"]}:
         assert layer in perf, layer
 
 
 def test_every_cell_reports_setup_another_end_to_end_and_a_per_layer_metric():
-    for w in MAN["workloads"]:
-        e2e = [m["name"] for m in manifest.metrics_for(MAN, w["name"], "end_to_end")]
-        assert "setup_s" in e2e and len(e2e) >= 2
-        assert manifest.metrics_for(MAN, w["name"], "per_layer")
+    checks.check_reports(MAN)
 
 
 def test_bad_names_are_refused():
@@ -158,29 +103,9 @@ def test_an_unknown_entry_raises(tmp_path):
 @pytest.mark.parametrize("workload", [w["name"] for w in MAN["workloads"]])
 def test_every_cell_reports_exactly_its_end_to_end_metrics(workload, tmp_path):
     """A whole run of each cell at a tiny size on the CPU, through `run.result`:
-    its configuration and traffic swapped for tiny ones under the same names."""
-    import torch
-
-    from port_bench import run
-    from port_bench.tests import tiny
-
-    here = tmp_path / "port_bench"
-    shutil.copytree(manifest.HERE, here, ignore=shutil.ignore_patterns("__pycache__", "_cache"))
-    w = manifest.cell(MAN, workload)
-    entry = manifest.entry_name(manifest.config(w["config"]))
-    cfg, tr = ((tiny.tiny_config(w["config"]), tiny.TINY_TRAFFIC) if entry == "fit"
-               else (tiny.tiny_tracks_config(w["config"]), tiny.TINY_TRACKS_TRAFFIC))
-    (here / "configs" / f"{w['config']}.json").write_text(json.dumps(cfg))
-    (here / "traffic" / f"{w['traffic']}.json").write_text(json.dumps(tr))
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        res, _ = run.result(MAN, workload, 2 ** 31 + 99, 0.3, False, "cpu", 0.0, here=str(here))
-    finally:
-        torch.set_num_threads(n)
-    assert set(res["metrics"]) == {m["name"] for m in manifest.metrics_for(MAN, workload, "end_to_end")}
-    assert res["correct"] and res["attempted"] > 0
-    assert all(v["value"] > 0 for v in res["metrics"].values())
+    its configuration and traffic swapped, under the same names, for its
+    entry's CPU case (`tests/tiny_<entry>.py`)."""
+    checks.check_tiny_cell(MAN, workload, manifest.HERE, str(tmp_path))
 
 
 def test_new_metric_and_traffic_need_only_new_files(tmp_path):
@@ -234,3 +159,118 @@ def test_a_new_entry_point_needs_only_new_files(tmp_path):
     assert res["metrics"] == {"dummy_ms": {"value": 12.0, "unit": "ms"}, "setup_s": {"value": 0.5, "unit": "s"}}
     assert res["correct"] and res["attempted"] == 4
     assert all(open(p, "rb").read() == b for p, b in before.items())
+
+
+DUMMY_ENTRY = '''"""A dummy entry point: sums a vector drawn from the seed, `calls` times,
+and holds the sum to its plain reference's (`reference/dummy.py`)."""
+
+import importlib.util
+import os
+import time
+
+import torch
+
+TRAFFIC_KEYS = ("calls",)
+LIMIT_KEYS = ("sum_gap",)
+REFERENCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "reference", "dummy.py")
+
+
+def run(cfg, traffic, limits, seed, seconds, trace, device, t_start, readers):
+    spec = importlib.util.spec_from_file_location("port_bench_reference_dummy", REFERENCE)
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    x = torch.rand(cfg["size"], generator=torch.Generator().manual_seed(seed), dtype=torch.float64)
+    setup_s = time.perf_counter() - t_start
+    t0 = time.perf_counter()
+    total = [float(x.sum()) for _ in range(traffic["calls"])][-1]
+    ms = (time.perf_counter() - t0) * 1e3 / traffic["calls"]
+    gap = abs(total - ref.total(x.tolist()))
+    return {"metrics": {"preprocess_ms_per_frame": ms, "setup_s": setup_s}, "attempted": traffic["calls"],
+            "memory_peak_bytes": 0, "phases": {},
+            "check": [{"name": "sum_gap", "value": gap, "limit": limits["sum_gap"], "ok": gap <= limits["sum_gap"]}]}
+'''
+DUMMY_REFERENCE = '''"""The dummy entry's plain reference."""
+
+import math
+
+
+def total(values):
+    return math.fsum(values)
+'''
+DUMMY_TINY = '''"""The dummy entry's CPU case."""
+
+import json
+import os
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TRAFFIC = {"calls": 3}
+
+
+def config(name):
+    with open(os.path.join(HERE, "configs", name + ".json")) as f:
+        cfg = json.load(f)
+    cfg["size"] = 64
+    return cfg
+'''
+
+
+def _dummy_entry(tmp_path, tiny=True):
+    """A copy of the folder with a dummy entry point dropped in (the entry,
+    its configuration, traffic, limits, reference and reader, and with `tiny`
+    its CPU case), a manifest that adds its configuration, its cell and its
+    reader, and appends the cell to `preprocess_ms_per_frame`'s workloads; and
+    the bytes of every file that was there before."""
+    here = tmp_path / "port_bench"
+    shutil.copytree(manifest.HERE, here, ignore=checks.COPY_IGNORE)
+    before = {p: open(p, "rb").read() for p in map(str, here.rglob("*")) if os.path.isfile(p)}
+    source = "https://example.org/dummy"
+    (here / "entries" / "dummy.py").write_text(DUMMY_ENTRY)
+    (here / "reference" / "dummy.py").write_text(DUMMY_REFERENCE)
+    (here / "metrics" / "dummy_calls.dummy.py").write_text("def read(ctx):\n    return ctx.get('calls')\n")
+    (here / "configs" / "dummy_cfg.json").write_text(json.dumps(
+        {"entry": "dummy", "source": source, "reduced": [], "size": 1 << 20}))
+    (here / "traffic" / "dummy_mix.json").write_text(json.dumps({"calls": 40}))
+    (here / "limits" / "dummy_cfg.json").write_text(json.dumps({"sum_gap": 1e-9}))
+    if tiny:
+        (here / "tests" / "tiny_dummy.py").write_text(DUMMY_TINY)
+    man = json.loads(json.dumps(MAN))
+    man["configs"].append({"name": "dummy_cfg", "source": source, "file": "port_bench/configs/dummy_cfg.json",
+                           "reduced": [], "why": "a dummy"})
+    man["workloads"].append({"name": "dummy_cell", "config": "dummy_cfg", "traffic": "dummy_mix", "chips": 1,
+                             "why": "a dummy"})
+    next(m for m in man["end_to_end"] if m["name"] == "preprocess_ms_per_frame")["workloads"].append("dummy_cell")
+    man["per_layer"].append({"name": "dummy_calls.dummy", "unit": "calls", "better": "lower",
+                             "source": "program_counter", "layer": "dummy", "moves": "preprocess_ms_per_frame",
+                             "workloads": ["dummy_cell"]})
+    return str(here), man, before
+
+
+def test_a_new_entrys_cell_passes_every_generic_check_with_new_files_only(tmp_path):
+    """Every generic check holds the dummy entry's cell, and no file that was
+    in the folder changes."""
+    here, man, before = _dummy_entry(tmp_path)
+    checks.check_configs(man, here)
+    checks.check_workloads(man, here)
+    checks.check_metrics(man, here)
+    checks.check_reports(man)
+    assert checks.entries(man, here) == ["dummy", "fit", "tracks"]
+    res = checks.check_tiny_cell(man, "dummy_cell", here, str(tmp_path / "cell"))
+    assert set(res["metrics"]) == {"preprocess_ms_per_frame", "setup_s"} and res["attempted"] == 3
+    checks.check_reference_loads_nothing(here)
+    checks.check_whole_run_loads_no_jax(man, "dummy", here, str(tmp_path / "whole"))
+    assert all(open(p, "rb").read() == b for p, b in before.items())
+
+
+def test_a_cell_whose_entry_has_no_cpu_case_fails(tmp_path):
+    here, man, _ = _dummy_entry(tmp_path, tiny=False)
+    with pytest.raises(AssertionError, match="add port_bench/tests/tiny_dummy.py"):
+        checks.check_tiny_cell(man, "dummy_cell", here, str(tmp_path / "cell"))
+
+
+@pytest.mark.parametrize("folder,module", [("reference", "splatter_a_video_tpu_torch"), ("counts", "jax")])
+def test_a_reference_that_loads_the_program_or_jax_fails(tmp_path, folder, module):
+    here, _, _ = _dummy_entry(tmp_path)
+    checks.check_reference_loads_nothing(here)
+    (tmp_path / "port_bench" / folder / "leaky.py").write_text(f"import {module}\n")
+    with pytest.raises(AssertionError, match=f"loads {module}"):
+        checks.check_reference_loads_nothing(here)

@@ -7,6 +7,7 @@ import sys
 
 from port_bench import manifest
 from port_bench.run import forbidden_modules
+from port_bench.tests import checks
 
 ROOT = manifest.ROOT
 
@@ -40,6 +41,5 @@ def test_the_harness_and_the_program_load_no_jax():
 
 
 def test_the_reference_loads_nothing_of_the_program():
-    mods = _modules_after("import port_bench.reference.follow, port_bench.reference.plain, "
-                          "port_bench.reference.prng, port_bench.reference.tapir, port_bench.counts.tapir")
-    assert not mods & {"jax", "jaxlib", "flax", "splatter_a_video_tpu", "splatter_a_video_tpu_torch"}
+    """Every module under `reference/` and `counts/`, found by folder."""
+    checks.check_reference_loads_nothing(manifest.HERE)

@@ -12,7 +12,7 @@ from scipy.ndimage import binary_erosion
 from port_bench import clip as _clip
 from port_bench import compare, harness, manifest
 from port_bench.reference import scene
-from port_bench.tests.tiny import tiny_config
+from port_bench.tests import tiny_fit
 
 SEED = 2 ** 31 + 4321
 
@@ -44,7 +44,7 @@ def test_knn_scale_is_exact_with_duplicates():
 
 
 def _numbers():
-    cfg = tiny_config("flagship_2160p")
+    cfg = tiny_fit.config("flagship_2160p")
     clip = _clip.make_clip(_clip.spec_from_config(cfg), SEED, "cpu")
     fcfg, _ = harness.program_configs(cfg, SEED)
     from splatter_a_video_tpu_torch.train import fit

@@ -14,7 +14,7 @@ import torch
 from port_bench import manifest
 from port_bench.entries import tracks
 from port_bench.reference import tapir as ref
-from port_bench.tests.tiny import TINY_TRACKS_TRAFFIC, tiny_tracks_config
+from port_bench.tests import tiny_tracks
 
 SEED = 2 ** 31 + 4321           # past 32 signed bits, as a run's seed may be
 NAME = "bootstapir_480p"
@@ -29,7 +29,7 @@ def one_thread():
 
 
 def _run(cfg=None):
-    out = tracks.run(cfg or tiny_tracks_config(), TINY_TRACKS_TRAFFIC, manifest.limits(NAME), SEED, 0.2, False, "cpu",
+    out = tracks.run(cfg or tiny_tracks.config(), tiny_tracks.TRAFFIC, manifest.limits(NAME), SEED, 0.2, False, "cpu",
                      time.perf_counter(), {})
     return {c["name"]: c for c in out["check"]}, out
 
@@ -47,7 +47,7 @@ def test_the_reference_matches_the_program():
     """4 frames at 64x64, 8 queries on several frames, 2 mixer blocks, 1 ExtraConv."""
     from splatter_a_video_tpu_torch.nets import tapir
 
-    cfg = tiny_tracks_config()
+    cfg = tiny_tracks.config()
     m = cfg["model"]
     params = ref.draw_params(m, 7, "cpu")
     names = {n for n, _, _ in ref.param_shapes(m)}
@@ -77,7 +77,7 @@ def test_tiny_cell_is_correct():
     checks, out = _run()
     assert all(c["ok"] for c in checks.values()), checks
     assert set(checks) == set(tracks.LIMIT_KEYS)
-    assert out["attempted"] % TINY_TRACKS_TRAFFIC["queries_per_call"] == 0
+    assert out["attempted"] % tiny_tracks.TRAFFIC["queries_per_call"] == 0
     assert out["metrics"]["preprocess_ms_per_frame"] > 0 and out["metrics"]["setup_s"] > 0
 
 
