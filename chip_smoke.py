@@ -1587,7 +1587,7 @@ def nets_phase(args, dev, card: str) -> None:
             f"TAPIR card vs CPU: {errs}")
     log("nets", f"TAPIR (random weights, seed {NETS_SEED}) at {res[0]}x{res[1]}, {TAPIR_FRAMES} frames, "
                 f"{TAPIR_CHUNKS} chunks of {TAPIR_CHUNK} queries: finite; {tapir_ms:.3f} ms/chunk (track_points, "
-                f"wall; each chunk recomputes the {TAPIR_FRAMES} frames' feature grids); card vs CPU on "
+                f"wall; the {TAPIR_FRAMES} frames' feature grids computed once a call); card vs CPU on "
                 f"{TAPIR_CHECK_FRAMES} frames, one chunk: max |diff| "
                 + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
                 + f" (bars atol {TAPIR_ATOL}, rtol {TAPIR_RTOL}; CPU {cpu_s:.1f} s) {card}")

@@ -9,7 +9,9 @@ JAX padding pairs, some uneven (conv2d's own padding is symmetric). The
 samplers are gathers at `coord - 0.5` written out (not `grid_sample`, which
 normalises coordinates otherwise), with int corners clamped and weighted to
 zero out of range unless `border`. The feature extractor runs
-`frame_chunk` frames at a time to bound its memory. Params are the JAX
+`frame_chunk` frames at a time to bound its memory. The grids depend on the
+video alone: `track_points` computes them once a call and every chunk of
+the call reuses them (`_grids_once`). Params are the JAX
 package's dict (convs HWIO, linears [in, out], depthwise kernels [k, 1,
 out]); feature grids are channels last.
 
@@ -22,8 +24,10 @@ stays gated.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
+import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -32,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..utils import spans as _spans
 from .convert_util import ParamModule, to_numpy
 from .interp import interp2d
 
@@ -524,14 +529,45 @@ def _avg_pool_hw(x: torch.Tensor) -> torch.Tensor:
     return x[:, : h // 2 * 2, : w // 2 * 2].reshape(T, h // 2, 2, w // 2, 2, C).mean(dim=(2, 4))
 
 
+# the grids kept by an open `_grids_once` scope: [cfg, video, grids], [] before the first pass
+_memo = threading.local()
+
+
+@contextlib.contextmanager
+def _grids_once():
+    """Within the scope, the first `forward` on a video computes its grids
+    and later ones on the same tensor (and config) reuse them; they are
+    dropped when the scope exits. Counts `tapir.grids` and
+    `tapir.grids_reused` while spans record."""
+    prev = getattr(_memo, "kept", None)
+    _memo.kept = []
+    try:
+        yield
+    finally:
+        _memo.kept = prev
+
+
+def _feature_grids(cfg: TapirConfig, p, video: torch.Tensor):
+    kept = getattr(_memo, "kept", None)
+    if kept and kept[0] is cfg and kept[1] is video:
+        _spans.count("tapir.grids_reused")
+        return kept[2]
+    grids = get_feature_grids(cfg, p, video)
+    _spans.count("tapir.grids")
+    if kept is not None:
+        kept[:] = [cfg, video, grids]
+    return grids
+
+
 def forward(cfg: TapirConfig, p, video: torch.Tensor, query_points: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Track query points [N, 3] (t, y, x, video raster) through video [T,
     H, W, 3] in [-1, 1]: `TAPIR.forward` for the production configuration
     (square inference resolution, one feature grid for the initialisation
-    and the PIPs iterations)."""
+    and the PIPs iterations). Inside `_grids_once` the video's grids are
+    computed once for every call on it."""
     T, H, W, _ = video.shape
     ih, iw = cfg.initial_resolution
-    lowres, hires = get_feature_grids(cfg, p, video)
+    lowres, hires = _feature_grids(cfg, p, video)
     lh, lw = lowres.shape[1:3]
     hh, hw = hires.shape[1:3]
     scale = lambda *s: torch.tensor(s, dtype=query_points.dtype, device=query_points.device)
@@ -602,17 +638,20 @@ def track_points(model: Tapir, video_u8: np.ndarray, query_points: np.ndarray,
     """uint8 video [T, H, W, 3] and (t, y, x) queries -> tracks in the
     original video raster, on the model's device. Queries go in chunks of
     `chunk`, the last padded to the chunk and its pad dropped (the JAX
-    package's fixed shapes, kept so both packages run the same batches)."""
+    package's fixed shapes, kept so both packages run the same batches);
+    the video's feature grids are computed for the first chunk and reused
+    by the others."""
     dev = model.device
     video = torch.as_tensor(np.asarray(video_u8, np.float32), device=dev) / 255.0 * 2.0 - 1.0
     n = query_points.shape[0]
     outs: Dict[str, List[np.ndarray]] = {"tracks": [], "occlusion": [], "expected_dist": []}
-    for s in range(0, n, chunk):
-        q = query_points[s:s + chunk].astype(np.float32)
-        pad = chunk - q.shape[0]
-        if pad:
-            q = np.concatenate([q, np.zeros((pad, 3), np.float32)])
-        res = model(video, torch.from_numpy(q).to(dev))
-        for k in outs:
-            outs[k].append(res[k][: chunk - pad].cpu().numpy())
+    with _grids_once():
+        for s in range(0, n, chunk):
+            q = query_points[s:s + chunk].astype(np.float32)
+            pad = chunk - q.shape[0]
+            if pad:
+                q = np.concatenate([q, np.zeros((pad, 3), np.float32)])
+            res = model(video, torch.from_numpy(q).to(dev))
+            for k in outs:
+                outs[k].append(res[k][: chunk - pad].cpu().numpy())
     return {k: np.concatenate(v, axis=0) for k, v in outs.items()}

@@ -281,6 +281,94 @@ def test_track_points_pads_and_drops_the_pad(tapir):
         np.testing.assert_allclose(out[k], whole[k].numpy(), atol=1e-4, rtol=1e-4, err_msg=k)
 
 
+def _chunks(qp, chunk):
+    """`track_points`' chunks: the last padded with zero queries."""
+    out = []
+    for s in range(0, len(qp), chunk):
+        q = qp[s:s + chunk]
+        out.append(np.concatenate([q, np.zeros((chunk - len(q), 3), np.float32)]))
+    return out
+
+
+@pytest.fixture
+def grid_passes(monkeypatch):
+    """Counts the calls of `get_feature_grids`."""
+    n = {"calls": 0}
+    grids = ttapir.get_feature_grids
+
+    def counted(cfg, p, video):
+        n["calls"] += 1
+        return grids(cfg, p, video)
+
+    monkeypatch.setattr(ttapir, "get_feature_grids", counted)
+    return n
+
+
+def _track_clip(seed):
+    rng = np.random.RandomState(seed)
+    video = rng.randint(0, 255, (3, 40, 48, 3), dtype=np.uint8)
+    qp = np.stack([rng.randint(0, 3, 7), rng.rand(7) * 39, rng.rand(7) * 47], -1).astype(np.float32)
+    return video, qp
+
+
+def _separate_calls(model, video, qp, chunk):
+    """Each chunk through its own model call, which computes its own grids."""
+    v = torch.from_numpy(video.astype(np.float32)) / 255.0 * 2.0 - 1.0
+    res = [model(v, torch.from_numpy(q)) for q in _chunks(qp, chunk)]
+    return {k: np.concatenate([r[k].numpy() for r in res])[: len(qp)] for k in res[0]}
+
+
+def test_track_points_computes_the_grids_once_a_call(tapir, grid_passes):
+    """7 queries in chunks of 3 (one padded): one grid pass, and the rows of
+    three separate calls bit for bit."""
+    model = tapir[3]
+    video, qp = _track_clip(7)
+    out = ttapir.track_points(model, video, qp, chunk=3)
+    assert grid_passes["calls"] == 1
+    want = _separate_calls(model, video, qp, 3)
+    assert grid_passes["calls"] == 4
+    for k in want:
+        assert out[k].shape == want[k].shape and np.array_equal(out[k], want[k]), k
+
+
+def test_track_points_grids_follow_the_video(tapir, grid_passes):
+    """A second call on another video gives that video's answers, and a bare
+    `forward` after the calls computes its own grids."""
+    model = tapir[3]
+    video, qp = _track_clip(7)
+    other, _ = _track_clip(8)
+    first = ttapir.track_points(model, video, qp, chunk=3)
+    second = ttapir.track_points(model, other, qp, chunk=3)
+    assert grid_passes["calls"] == 2
+    want = _separate_calls(model, other, qp, 3)
+    for k in want:
+        assert np.array_equal(second[k], want[k]), k
+        assert not np.array_equal(second[k], first[k]), k
+    v = torch.from_numpy(other.astype(np.float32)) / 255.0 * 2.0 - 1.0
+    n = grid_passes["calls"]
+    ttapir.forward(model.cfg, model.params, v, torch.from_numpy(qp[:3]))
+    ttapir.forward(model.cfg, model.params, v, torch.from_numpy(qp[:3]))
+    assert grid_passes["calls"] == n + 2
+
+
+def test_track_points_counts_grid_passes(tapir):
+    """Under a recording window the 3-chunk call counts one grid pass and two
+    reuses; with no profiler it records nothing."""
+    from splatter_a_video_tpu_torch.utils import spans
+
+    model = tapir[3]
+    video, qp = _track_clip(7)
+    assert not spans.poll()
+    before = spans.last_window()["counters"]
+    ttapir.track_points(model, video, qp, chunk=3)
+    assert spans.last_window()["counters"] == before
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        assert spans.poll()
+        ttapir.track_points(model, video, qp, chunk=3)
+    assert not spans.poll()
+    assert spans.last_window()["counters"] == {"tapir.grids": 1, "tapir.grids_reused": 2}
+
+
 def test_tapir_params_from_torch_match_jax(tapir):
     # a random state dict in the reference's layout, 2 ExtraConvs and 2 mixer blocks to keep it small
     sd = ttapir.random_state_dict(dataclasses.replace(tapir[1], extra_convs=2, num_mixer_blocks=2))
